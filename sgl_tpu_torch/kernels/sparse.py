@@ -37,6 +37,11 @@ def spmm_segment(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
     dtype and cast back to ``x.dtype`` once, as the kernel does (and as the
     TPU kernel does; ``sgl_tpu``'s own XLA segment path sums bf16 in bf16).
     """
+    return segment_sum_f32(adj, x).to(x.dtype)
+
+
+def segment_sum_f32(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
+    """:func:`spmm_segment` before its cast: the f32 sum for any ``x``."""
     msgs = x.index_select(0, adj.src.long()).float() * adj.w[:, None].float()
     y = torch.zeros((adj.num_nodes, x.shape[1]), dtype=torch.float32, device=x.device)
     if y.is_cuda:
@@ -47,7 +52,7 @@ def spmm_segment(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
         y.index_put_((adj.dst.long(),), msgs, accumulate=True)
     else:
         y.index_add_(0, adj.dst.long(), msgs)
-    return y.to(x.dtype)
+    return y
 
 
 def spmm(adj, x: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,11 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("datasets", "graph", "kernels", "models", "ops", "tasks", "utils")
-MODULES = ["sgl_tpu_torch", "sgl_tpu_torch.convert", "sgl_tpu_torch.kernels._build"] + [
+SUBPACKAGES = ("datasets", "examples", "graph", "kernels", "models", "ops", "tasks", "utils")
+MODULES = [
+    "sgl_tpu_torch", "sgl_tpu_torch.convert", "sgl_tpu_torch.kernels._build",
+    "sgl_tpu_torch.examples.products_scale_demo",
+] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
 ]
 # word-bounded: ``sgl_tpu_torch`` is not ``sgl_tpu``
