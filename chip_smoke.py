@@ -32,9 +32,20 @@ Phases; any failure raises and the script exits non-zero:
    limit for two f32 orders over hub rows, against the one-shot kernel,
    which is timed beside it; first the same pipeline at a small size
    against the port's CPU path;
-6. print one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+6. the ports of the ``dev/`` harnesses (TPU kernels D1–D6,
+   ``sgl_tpu_torch.dev``) at the bench shape: with the launch counters set
+   to 0 just before and read just after, ``exp_spmm.check`` (every SpMM
+   variant against ``spmm_csr_reference``), D2's accumulate probe and D1's
+   gather probe (2^20 rows of 128 f32, 2^18 and 2^20 edges, its bound from
+   the distinct rows the ids name, ``embedding_bag`` as its library call);
+   then each of
+   the six segment-reduce instantiations against its twin on its
+   variant's messages (D2 into a random accumulator at a row offset,
+   storage kept, untouched rows bit-exact), timed beside its bound, one
+   message array at a time;
+7. print one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    errors and times beside its bound;
-7. print ``{"ok": true, "device": {...}}`` as the last line.
+8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
 to it, and exits non-zero without printing a result when either is missing.
@@ -52,9 +63,12 @@ import time
 
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# arithmetic outside the tensor cores (the kernel sums in f32 for both dtypes)
-HBM_BYTES_PER_S = 3.35e12
+# CUDA-event medians, (max abs, max rel) errors and the H100 SXM's published
+# HBM3 bandwidth: the helpers the ported dev/ harnesses time and compare with
+from sgl_tpu_torch.dev import HBM_BYTES_PER_S, rel_err, time_ms
+
+# H100 SXM published f32 peak outside the tensor cores (NVIDIA data sheet;
+# the kernels sum in f32 for both dtypes)
 F32_FLOPS = 67e12
 REPLACES = "sgl_tpu/kernels/pallas_spmm.py:466"
 REPLACES_ACC = "sgl_tpu/kernels/pallas_spmm.py:544"
@@ -72,6 +86,30 @@ BENCH_GRAPH = dict(num_nodes=200_000, avg_degree=25, feat_dim=128, seed=0)
 BENCH_PART_EDGES = 1 << 20
 # the products-scale pipeline of examples/products_scale_demo.py
 PRODUCTS = dict(n=2_400_000, avg_deg=25, d=100, hops=3, part_edges=6 << 20)
+# phase 6: the dev/ harnesses' kernels.  Each segment-reduce instantiation
+# is held against its twin on the messages of the harness variant named
+# here (D2's on the bf16 features gathered, into a random accumulator at a
+# row offset); D1 at its probe's shapes (dev/exp_gather_dma.py:97-103)
+DEV_GRAPH = dict(n=200_000, avg_deg=25, d=128)
+GATHER = dict(n=1 << 20, d=128, es=(1 << 18, 1 << 20))
+DEV_VARIANT = {"bf16_acc": "b", "bf16_hilo": "factored", "f32": "factored_f32",
+               "bf16_hilo_w2": "packed", "f32_w2": "a", "bf16_w": "b"}
+D2_ROW_OFFSET = 256
+# kernel vs twin, of max|y|, for every form: the same messages summed in f32
+# in the same order (products of bf16 inputs are exact in f32), so only the
+# kernel's fused multiply-adds inside one message differ; D1: two f32 orders
+# of one sum over 2^20 rows
+DEV_TOL = 1e-5
+SEGMENT_SOURCE = "sgl_tpu_torch/kernels/csrc/segment_reduce.cu"
+DEV_REPLACES = {
+    "bf16_acc": "dev/exp_acc_alias.py:56",
+    "bf16_hilo": "dev/exp_spmm.py:100",
+    "f32": "dev/exp_spmm.py:175",  # and D6 A' at :662
+    "bf16_hilo_w2": "dev/exp_spmm.py:396",
+    "f32_w2": "dev/exp_spmm.py:662",
+    "bf16_w": "dev/exp_spmm.py:662",
+    "gather_sum": "dev/exp_gather_dma.py:77",
+}
 
 
 def log(msg: str) -> None:
@@ -81,28 +119,6 @@ def log(msg: str) -> None:
 def check(ok, msg) -> None:
     if not ok:
         raise RuntimeError(str(msg))
-
-
-def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` runs, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def rel_err(got, want) -> tuple:
-    diff = (got.double() - want.double()).abs().max().item()
-    return diff, diff / max(want.double().abs().max().item(), 1e-30)
 
 
 def f64_sum(adj, x):
@@ -182,7 +198,7 @@ def library_time(adj, x, want, warmup: int = 3, iters: int = 20) -> tuple:
             adj.rowptr, adj.col, adj.val.to(x.dtype), size=(n, n), check_invariants=False
         )
         lib_rel = rel_err(torch.sparse.mm(a, x), want)[1]
-        library_ms = time_ms(lambda: torch.sparse.mm(a, x), warmup, iters)
+        library_ms = time_ms(lambda: torch.sparse.mm(a, x), warmup=warmup, iters=iters)
         return library_ms, f"{library_ms:.4f} ms (max rel err {lib_rel:.2e})"
     except (RuntimeError, NotImplementedError) as exc:  # the yardstick only
         return None, f"not supported for {x.dtype}: {type(exc).__name__}: {exc}"
@@ -411,8 +427,8 @@ def streaming_bench_phase(dev, bench):
         acc_abs, acc_rel = check_accumulate(parts.parts[len(parts) // 2], x, f"[4] acc_{key} contract")
         # each part's launch alone, then the whole call, then the twin
         per_part = part_times_ms(parts, x)
-        call_ms = time_ms(lambda: spmm_csr_streaming(parts, x), 2, 10)
-        plain_ms = time_ms(lambda: spmm_csr_streaming_reference(parts, x), 1, 3)
+        call_ms = time_ms(lambda: spmm_csr_streaming(parts, x), warmup=2, iters=10)
+        plain_ms = time_ms(lambda: spmm_csr_streaming_reference(parts, x), warmup=1, iters=3)
         b = bound(stream_bytes(parts, x), parts.nnz, x.shape[1])
         results[key] = dict(
             abs_err=max(abs_t, acc_abs), rel_err=max(rel_t, acc_rel), ms=sum(per_part),
@@ -511,7 +527,7 @@ def products_phase(dev):
         one_shot = spmm_csr(out["csr"], x)
         order_note = split_order_check(out["csr"], stack[1], one_shot, x, f"products {key}")
         del one_shot
-        one_shot_ms = time_ms(lambda: spmm_csr(out["csr"], x), 1, 3)
+        one_shot_ms = time_ms(lambda: spmm_csr(out["csr"], x), warmup=1, iters=3)
         library_ms, lib_note = library_time(out["csr"], x, stack[1], 1, 5)
         b = bound(stream_bytes(parts, x), parts.nnz, x.shape[1])
         log(f"[5] products {key}: hop 1 vs streaming twin max abs err {abs_err:.3e}, max rel err {rel:.3e} "
@@ -527,6 +543,142 @@ def products_phase(dev):
         del out, stack, x, parts
         torch.cuda.empty_cache()
     return results
+
+
+def reset_dev_launches() -> None:
+    from sgl_tpu_torch.kernels import gather_sum, segment_reduce
+
+    for counts in (segment_reduce.launches, gather_sum.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def segment_bound(m, kw, n: int, d: int, accumulate: bool) -> dict:
+    """The least time of one segment reduce: ``4(N+1) + E·W·s_m + E·s_w +
+    N·D·4`` bytes (the window read too when it accumulates) at the HBM
+    rate, or its f32 operations (1, 2 or 6 per message element) at the f32
+    rate, whichever is longer."""
+    e, w = m.shape
+    n_w = (kw.get("wh") is not None) + (kw.get("wl") is not None)
+    nbytes = 4 * (n + 1) + e * w * m.element_size() + 2 * e * n_w + n * d * 4 * (2 if accumulate else 1)
+    flops = e * d * {0: kw.get("halves", 1), 1: 2, 2: 6 if kw.get("halves", 1) == 2 else 2}[n_w]
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                nbytes=nbytes)
+
+
+def dev_library_time(m, rowptr, want) -> tuple:
+    """``torch.segment_reduce`` (sum over offsets) on the same f32 messages,
+    the yardstick only: (median ms or None, a note with its error)."""
+    offsets = rowptr.long()
+    try:
+        lib_rel = rel_err(torch.segment_reduce(m, "sum", offsets=offsets, axis=0), want)[1]
+        ms = time_ms(lambda: torch.segment_reduce(m, "sum", offsets=offsets, axis=0), warmup=1, iters=5)
+        return ms, f"torch.segment_reduce {ms:.4f} ms (max rel err {lib_rel:.2e})"
+    except (RuntimeError, NotImplementedError) as exc:  # the yardstick only
+        return None, f"torch.segment_reduce failed: {type(exc).__name__}: {exc}"
+
+
+def dev_phase(dev):
+    """The ports of the ``dev/`` harnesses (TPU kernels D1–D6) at the bench
+    shape: their paths with the counters set to 0 just before and read just
+    after, then each instantiation against its twin on the harness's own
+    messages, timed beside its bound."""
+    from sgl_tpu_torch.dev import exp_acc_alias, exp_gather_dma, exp_spmm
+    from sgl_tpu_torch.kernels import gather_sum, segment_reduce, segment_reduce_reference
+    from sgl_tpu_torch.kernels.segment_reduce import INSTANTIATIONS
+
+    t = time.perf_counter()
+    g, csr = exp_spmm.make_graph(**DEV_GRAPH, device=dev)
+    ops = exp_spmm.prepare(csr)
+    x = torch.as_tensor(g.x, device=dev)
+    n, d = x.shape
+    # the hub row alone (every other row empty), for where the time goes
+    lengths = torch.diff(csr.rowptr.long())
+    top = int(lengths.argmax())
+    beg, end = int(csr.rowptr[top]), int(csr.rowptr[top + 1])
+    hub_rowptr = torch.zeros_like(csr.rowptr)
+    hub_rowptr[top + 1:] = end - beg
+    log(f"[6] bench graph: {n} nodes, {csr.nnz} nonzeros, d={d}, longest row {top} of {end - beg} "
+        f"({time.perf_counter() - t:.2f} s to build)")
+
+    reset_dev_launches()
+    harness_errs = exp_spmm.check(ops, x)  # D3, D4, D5, D6 A, A', B
+    alias = exp_acc_alias.probe(dev)  # D2 at its probe's shapes
+    gather = exp_gather_dma.probe(**GATHER, device=dev)  # D1
+    torch.cuda.synchronize()
+    launches = dict(segment_reduce.launches)
+    launches["gather_sum"] = gather_sum.launches["f32"]
+    check(all(v > 0 for v in launches.values()), f"[6] a kernel was not launched: {launches}")
+    errs = ", ".join(f"{k} {v:.3e}" for k, v in harness_errs.items())
+    log(f"[6] harness paths: launches {launches}; exp_spmm --check errors: {errs}; acc_alias {alias}")
+
+    results = {}
+    for key, variant in DEV_VARIANT.items():
+        m, kw = exp_spmm.kernel_inputs(variant, ops, x)
+        accumulate = INSTANTIATIONS[key][3]
+        if accumulate:
+            # into a random accumulator at a row offset, rows on both sides
+            # of the window outside it
+            acc0 = torch.randn(n + 2 * D2_ROW_OFFSET, d, device=dev,
+                               generator=torch.Generator(dev).manual_seed(0))
+            kw = dict(row_offset=D2_ROW_OFFSET)  # the gathered bf16 rows, unweighted
+            acc = acc0.clone()
+            got = segment_reduce(csr.rowptr, m, out=acc, **kw)
+            want = segment_reduce_reference(csr.rowptr, m, out=acc0.clone(), **kw)
+            torch.cuda.synchronize()
+            check(got is acc and got.data_ptr() == acc.data_ptr(), f"[6] {key}: not in place")
+            touched = torch.zeros(acc.shape[0], dtype=torch.bool, device=dev)
+            touched[D2_ROW_OFFSET:D2_ROW_OFFSET + n] = torch.diff(csr.rowptr) > 0
+            check(torch.equal(got[~touched], acc0[~touched]), f"[6] {key}: untouched rows changed")
+            note = f"storage kept, {int((~touched).sum())} untouched rows bit-exact; "
+            got, want = got[touched], want[touched]
+            got_out = acc
+            run = lambda: segment_reduce(csr.rowptr, m, out=acc, **kw)  # noqa: E731
+            twin = lambda: segment_reduce_reference(csr.rowptr, m, out=acc, **kw)  # noqa: E731
+        else:
+            got = segment_reduce(csr.rowptr, m, **kw)
+            want = segment_reduce_reference(csr.rowptr, m, **kw)
+            torch.cuda.synchronize()
+            check(got.shape == (n, d) and got.dtype == torch.float32, f"[6] {key}: {tuple(got.shape)}")
+            note, got_out = "", None
+            run = lambda: segment_reduce(csr.rowptr, m, **kw)  # noqa: E731
+            twin = lambda: segment_reduce_reference(csr.rowptr, m, **kw)  # noqa: E731
+        check(torch.isfinite(got).all().item(), f"[6] {key}: non-finite output")
+        abs_err, rel = rel_err(got, want)
+        check(rel <= DEV_TOL, f"[6] segment_reduce {key} disagrees with its twin: {rel:.3e}")
+        ms = time_ms(run, warmup=2, iters=10)
+        plain_ms = time_ms(twin, warmup=1, iters=3)
+        hub_kw = {k: (v[beg:end] if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+        hub_ms = time_ms(lambda: segment_reduce(hub_rowptr, m[beg:end], out=got_out, **hub_kw),
+                         warmup=1, iters=5)
+        library_ms, lib_note = None, "no one PyTorch call computes this form"
+        if key == "f32":
+            library_ms, lib_note = dev_library_time(m, csr.rowptr, want)
+        b = segment_bound(m, kw, n, d, accumulate)
+        results[key] = dict(abs_err=abs_err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        log(f"[6] segment_reduce {key} ({INSTANTIATIONS[key][4]}; {variant} messages "
+            f"{tuple(m.shape)} {m.dtype}): {note}max abs err {abs_err:.3e}, max rel err {rel:.3e} "
+            f"(limit {DEV_TOL:.0e}); kernel {ms:.4f} ms (the hub row alone {hub_ms:.4f} ms, "
+            f"{hub_ms * 1e6 / (end - beg):.1f} ns a message row); plain twin {plain_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['nbytes'] / 1e9:.4f} GB at 3.35 TB/s, {b['bound_by']}); "
+            f"library: {lib_note}")
+        del m, got, want, run, twin
+        torch.cuda.empty_cache()
+
+    big = gather[-1]  # E = 2^20
+    results["gather_sum"] = dict(
+        abs_err=max(r["abs_err"] for r in gather), rel_err=max(r["err"] for r in gather),
+        ms=big["ms"], plain_ms=big["plain_ms"], library_ms=big["library_ms"], bound_ms=big["bound_ms"],
+        bound_by="bytes",
+    )
+    log(f"[6] gather_sum (D1) at n={GATHER['n']}, d={GATHER['d']}: "
+        + "; ".join(f"E={r['e']} ({r['distinct']} distinct rows): {r['ms']:.4f} ms ({r['ns_per_row']:.4f} "
+                    f"ns/row, {r['bound_ms'] / r['ms']:.1%} of the bound {r['bound_ms']:.4f} ms), plain "
+                    f"{r['plain_ms']:.4f} ms, library (embedding_bag, one bag) {r['library_ms']:.4f} ms "
+                    f"(max rel err {r['library_err']:.2e})" for r in gather))
+    return launches, results
 
 
 
@@ -583,14 +735,16 @@ def main() -> int:
     phase("3 small graph", reference_check_phase, dev)
     stream_bench = phase("4", streaming_bench_phase, dev, bench)
     products = phase("5", products_phase, dev)
-    print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products)))
+    dev_launches, dev_results = phase("6", dev_phase, dev)
+    print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products,
+                                  dev_launches, dev_results)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
 
 
-def kernels_line(bench, launches, main_errs, stream_bench, products) -> dict:
+def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results) -> dict:
     kernels = []
     for key in ("f32", "bf16"):
         r = bench[key]
@@ -614,6 +768,17 @@ def kernels_line(bench, launches, main_errs, stream_bench, products) -> dict:
             # one hop at products scale: every part's launch, summed
             "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": p["bound_by"], "library_ms": p["library_ms"], "shape": "products",
+        })
+    for key, r in dev_results.items():
+        gather = key == "gather_sum"
+        kernels.append({
+            "name": key if gather else f"segment_reduce_{key}", "route": "cuda",
+            "source": "sgl_tpu_torch/kernels/csrc/gather_sum.cu" if gather else SEGMENT_SOURCE,
+            "replaces": DEV_REPLACES[key], "launches": dev_launches[key],
+            "max_abs_err": r["abs_err"], "max_rel_err": r["rel_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": "gather probe, E = 2^20" if gather else "bench",
         })
     return {"kernels": kernels}
 

@@ -10,6 +10,11 @@ own sources only, under a name that carries a hash of the source and the
 flags, so an edited source is rebuilt and a stale library is never loaded.
 Nothing here runs at import: the CPU tests import every module on a machine
 with no ``nvcc``.  A failed build raises; there is no fallback.
+
+Every entry point returns ``cudaGetLastError()`` as an ``int`` and takes
+the CUDA stream last; each library also exports ``sgl_cuda_error_string``.
+:func:`load_entries` sets the ``ctypes`` signatures and :func:`call`
+launches on PyTorch's current stream and raises on a refused launch.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Iterable, List
+from typing import Iterable, List, Mapping, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -30,7 +37,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 # every kernel source of the package; chip_smoke.py builds them all at once
-SOURCES = ("spmm_csr",)
+SOURCES = ("spmm_csr", "segment_reduce", "gather_sum")
 
 
 def nvcc_path() -> str:
@@ -98,3 +105,27 @@ def load(name: str) -> ctypes.CDLL:
     """Load the library for ``csrc/<name>.cu``, building it first if needed."""
     (path,) = build([name])
     return ctypes.CDLL(str(path))
+
+
+def load_entries(name: str, entries: Mapping[str, Sequence]) -> ctypes.CDLL:
+    """:func:`load` with the argument types of each named entry point set
+    (the stream, last, included) and every entry returning an ``int``."""
+    lib = load(name)
+    for fn, argtypes in entries.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    lib.sgl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.sgl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def call(lib: ctypes.CDLL, fn: str, device, *args) -> None:
+    """Call entry point ``fn`` of ``lib`` with ``args`` and ``device``'s
+    current stream; raise if the launch was refused."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        msg = lib.sgl_cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn} kernel launch failed: {msg} (cudaError {err})")

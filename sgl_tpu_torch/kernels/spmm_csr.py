@@ -47,6 +47,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sgl_tpu_torch.kernels import _build
 from sgl_tpu_torch.kernels.sparse import SparseAdj, segment_sum_f32, spmm_segment
 
 _INT32_MAX = 2**31 - 1
@@ -121,29 +122,16 @@ _DTYPE_KEY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures set."""
-    from sgl_tpu_torch.kernels import _build
-
-    lib = _build.load("spmm_csr")
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for fn, n_ints in _ENTRY.values():
-        f = getattr(lib, fn)
-        f.argtypes = [ptr] * 5 + [i64] * n_ints + [ptr]
-        f.restype = ctypes.c_int
-    lib.sgl_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.sgl_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load_entries(
+        "spmm_csr", {fn: [ptr] * 5 + [i64] * n_ints + [ptr] for fn, n_ints in _ENTRY.values()}
+    )
 
 
 def _launch(key: str, device: torch.device, *args) -> None:
     """Call the C entry point of ``key`` on ``device``'s current stream;
     raise on a refused launch, count it otherwise."""
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, _ENTRY[key][0])(*args, stream)
-    if err != 0:
-        msg = lib.sgl_cuda_error_string(err).decode()
-        raise RuntimeError(f"spmm_csr {key} kernel launch failed: {msg} (cudaError {err})")
+    _build.call(_library(), _ENTRY[key][0], device, *args)
     spmm_csr.launches[key] += 1
 
 

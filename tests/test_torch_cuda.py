@@ -13,8 +13,12 @@ import torch
 from sgl_tpu_torch.datasets import PlantedPartition, random_power_law_graph
 from sgl_tpu_torch.graph import symmetric_normalized_weights
 from sgl_tpu_torch.kernels import (
+    gather_sum,
+    gather_sum_reference,
     prepare_csr,
     prepare_csr_parts,
+    segment_reduce,
+    segment_reduce_reference,
     spmm,
     spmm_csr,
     spmm_csr_acc,
@@ -23,6 +27,7 @@ from sgl_tpu_torch.kernels import (
     spmm_csr_streaming,
     spmm_csr_streaming_reference,
 )
+from sgl_tpu_torch.kernels.segment_reduce import INSTANTIATIONS
 from sgl_tpu_torch.models import SGC
 from sgl_tpu_torch.tasks import NodeClassification
 
@@ -167,3 +172,102 @@ def test_spmm_csr_acc_rejects_bad_input(cuda):
         spmm_csr_acc(part, x.t().contiguous().t(), acc)
     with pytest.raises(ValueError):  # fewer rows than the graph's nodes
         spmm_csr_acc(part, x[:-1], acc)
+
+
+# -- the segment reduce (dev/ kernels D2-D6) and the gather sum (D1) ----------
+
+
+def _segment_inputs(cuda, key, d, n=3000, seed=0):
+    """Dst-ordered random messages for instantiation ``key`` on the card: a
+    hub row of 20,000 messages, empty rows (every 7th), bf16 weight halves
+    where the form takes them."""
+    dtype, halves, n_w, _, _ = INSTANTIATIONS[key]
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 12, n)
+    lengths[5] = 20_000
+    lengths[::7] = 0
+    rowptr = torch.as_tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int32, device=cuda)
+    e = int(rowptr[-1])
+    gen = torch.Generator(cuda).manual_seed(seed)
+    m = torch.randn(e, halves * d, device=cuda, generator=gen).to(dtype)
+    w = torch.rand(e, device=cuda, generator=gen) + 0.5
+    wh = w.to(torch.bfloat16)
+    wl = (w - wh.float()).to(torch.bfloat16)
+    return rowptr, m, dict(halves=halves, wh=wh if n_w >= 1 else None, wl=wl if n_w == 2 else None)
+
+
+@pytest.mark.parametrize("key", sorted(INSTANTIATIONS))
+# full-warp packets, packets that leave lanes idle, scalar, and two column
+# passes (D = 256: [hi | lo] rows of 1 KB for the halves forms)
+@pytest.mark.parametrize("d", [128, 100, 37, 256])
+def test_segment_reduce_kernel_matches_plain(cuda, key, d):
+    rowptr, m, kw = _segment_inputs(cuda, key, d)
+    n = rowptr.shape[0] - 1
+    before = segment_reduce.launches[key]
+    if INSTANTIATIONS[key][3]:
+        off = 7
+        acc0 = torch.randn(off + n + 5, d, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+        acc = acc0.clone()
+        got = segment_reduce(rowptr, m, out=acc, row_offset=off, **kw)
+        want = segment_reduce_reference(rowptr, m, out=acc0.clone(), row_offset=off, **kw)
+        torch.cuda.synchronize()
+        assert got is acc and got.data_ptr() == acc.data_ptr()
+        touched = torch.zeros(acc.shape[0], dtype=torch.bool, device=cuda)
+        touched[off:off + n] = torch.diff(rowptr) > 0
+        # outside the window and the window's empty rows: bit for bit
+        assert torch.equal(got[~touched], acc0[~touched])
+        got, want = got[touched], want[touched]
+    else:
+        got = segment_reduce(rowptr, m, **kw)
+        want = segment_reduce_reference(rowptr, m, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (n, d)
+        assert not got[torch.diff(rowptr) == 0].any()  # empty rows written as zeros
+    assert segment_reduce.launches[key] == before + 1
+    # the same messages summed in the same order: only fused multiply-adds
+    # inside a message differ
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("d", [128, 100, 37])
+def test_gather_sum_kernel_matches_plain_and_is_deterministic(cuda, d):
+    n, e = 50_000, 100_003  # E a multiple of no block size
+    gen = torch.Generator(cuda).manual_seed(2)
+    x = torch.randn(n, d, device=cuda, generator=gen)
+    src = torch.randint(0, n, (e,), device=cuda, generator=gen, dtype=torch.int32)
+    before = gather_sum.launches["f32"]
+    got = gather_sum(x, src)
+    torch.cuda.synchronize()
+    assert gather_sum.launches["f32"] == before + 1
+    assert got.shape == (1, d) and got.dtype == torch.float32
+    want = gather_sum_reference(x, src)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(gather_sum(x, src), got)  # no atomics: the same bits every run
+    one = gather_sum(x, src[:1])
+    assert torch.equal(one, x[src[:1].long()])
+
+
+def test_segment_reduce_rejects_bad_input(cuda):
+    rowptr, m, _ = _segment_inputs(cuda, "f32", 16, n=50)
+    n = rowptr.shape[0] - 1
+    out = torch.zeros(n + 2, 16, device=cuda)
+    wh = torch.ones(m.shape[0], dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        segment_reduce(rowptr, m.half())
+    with pytest.raises(ValueError):  # short rowptr
+        segment_reduce(rowptr[:0], m)
+    with pytest.raises(ValueError):  # rowptr names more message rows than m holds
+        segment_reduce(rowptr, m[:-1].contiguous())
+    with pytest.raises(ValueError):
+        segment_reduce(rowptr, m.t().contiguous().t())
+    with pytest.raises(ValueError):  # out too short for the window
+        segment_reduce(rowptr, m, out=out, row_offset=3)
+    with pytest.raises(ValueError):
+        segment_reduce(rowptr.cpu(), m)
+    with pytest.raises(ValueError):  # f32 messages with one weight: no such kernel
+        segment_reduce(rowptr, m, wh=wh)
+    with pytest.raises(TypeError):
+        gather_sum(m.double(), rowptr)
+    with pytest.raises(ValueError):
+        gather_sum(m, rowptr.cpu())

@@ -1,6 +1,6 @@
 """The port stands alone: ``sgl_tpu_torch`` and ``chip_smoke.py`` import
-nothing of JAX, Flax, Optax or ``sgl_tpu``, and importing the package needs
-no CUDA."""
+nothing of JAX, Flax, Optax, ``sgl_tpu`` or the JAX harnesses in ``dev/``,
+and importing the package needs no CUDA."""
 
 import pathlib
 import re
@@ -10,15 +10,17 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("datasets", "examples", "graph", "kernels", "models", "ops", "tasks", "utils")
+SUBPACKAGES = ("datasets", "dev", "examples", "graph", "kernels", "models", "ops", "tasks", "utils")
 MODULES = [
     "sgl_tpu_torch", "sgl_tpu_torch.convert", "sgl_tpu_torch.kernels._build",
-    "sgl_tpu_torch.examples.products_scale_demo",
+    "sgl_tpu_torch.examples.products_scale_demo", "sgl_tpu_torch.dev.exp_spmm",
+    "sgl_tpu_torch.dev.exp_gather_dma", "sgl_tpu_torch.dev.exp_acc_alias",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
 ]
-# word-bounded: ``sgl_tpu_torch`` is not ``sgl_tpu``
-FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|optax|sgl_tpu)\b", re.M)
+# word-bounded: ``sgl_tpu_torch`` is not ``sgl_tpu``; ``dev`` and ``exp_*``
+# are the JAX harnesses, which the port's ``sgl_tpu_torch.dev`` replaces
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|optax|sgl_tpu|dev|exp_\w+)\b", re.M)
 SOURCES = sorted((ROOT / "sgl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -49,3 +51,8 @@ def test_forbidden_pattern_is_word_bounded():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert not FORBIDDEN.search("from sgl_tpu_torch.graph import Graph")
     assert not FORBIDDEN.search("import jaxlib_free_module")
+    assert FORBIDDEN.search("from dev.exp_spmm import build_factored")
+    assert FORBIDDEN.search("import dev.exp_gather_dma")
+    assert FORBIDDEN.search("from exp_spmm import run_micro9")
+    assert not FORBIDDEN.search("from sgl_tpu_torch.dev import exp_spmm")
+    assert not FORBIDDEN.search("import devices")
