@@ -11,31 +11,37 @@ Phases; any failure raises and the script exits non-zero:
    instantiation's registers and spills;
 2. hold the one-shot kernels against their plain PyTorch twin at the SpMM
    bench shape (``random_power_law_graph(200_000, 25, 128, seed=0)``: ~5.2M
-   nonzeros with self-loops) and time kernel, twin and the library call
-   (``torch.sparse.mm`` on a CSR tensor, used nowhere in the port) with
-   CUDA events;
+   nonzeros with self-loops), check that two runs give the same bits, and
+   time kernel, twin and the library call (``torch.sparse.mm`` on a CSR
+   tensor, used nowhere in the port) with CUDA events; print the split
+   plan (long rows cut into segments of ``SPLIT_NNZ`` nonzeros), the f32
+   error against a float64 sum, and the hub row alone against the whole
+   kernel;
 3. run the main path at full width through the user-facing entry points on
    the default device: ``NodeClassification`` with GAMLP (f32 precompute)
    and with SGC (bf16 precompute) on a 100k-node power-law dataset, with
-   the launch counters set to 0 just before each run and read just after;
-   then hold each kernel against its twin again at the main path's shape,
-   and check the outputs against the port's CPU path on a small graph;
+   the launch counters (first pass and fix-up) set to 0 just before each
+   run and read just after; then hold each kernel against its twin again
+   at the main path's shape, the f32 one also against a float64 sum
+   (``F64_TOL``), and check the outputs against the port's CPU path on a
+   small graph;
 4. streaming SpMM at the bench shape, in parts of ``1 << 20`` nonzeros:
-   the accumulating kernels against their twin and against the one-shot
-   product, the accumulate contract on one part (rows outside it kept bit
-   for bit), and their times;
+   the accumulating kernels against their twin, against the one-shot
+   product and, f32, against a float64 sum; two runs bit-equal; the
+   accumulate contract on one part (rows outside it kept bit for bit),
+   and their times;
 5. the products-scale pipeline (``sgl_tpu_torch.examples.
    products_scale_demo.main``: 2.4M nodes, ~62.4M nonzeros, d = 100, parts
    of ``6 << 20``) on the default device, f32 with GAMLP training and bf16
    precompute only, counters set to 0 just before each run and read just
    after; one hop of each held against the streaming twin and, within a
    limit for two f32 orders over hub rows, against the one-shot kernel,
-   which is timed beside it; first the same pipeline at a small size
-   against the port's CPU path;
+   which is timed beside it, f32 also against a float64 sum; first the
+   same pipeline at a small size against the port's CPU path;
 6. the ports of the ``dev/`` harnesses (TPU kernels D1–D6,
    ``sgl_tpu_torch.dev``) at the bench shape: with the launch counters set
    to 0 just before and read just after, ``exp_spmm.check`` (every SpMM
-   variant against ``spmm_csr_reference``), D2's accumulate probe and D1's
+   variant against ``exp_spmm.sequential_reference``), D2's accumulate probe and D1's
    gather probe (2^20 rows of 128 f32, 2^18 and 2^20 edges, its bound from
    the distinct rows the ids name, ``embedding_bag`` as its library call);
    then each of
@@ -43,8 +49,8 @@ Phases; any failure raises and the script exits non-zero:
    variant's messages (D2 into a random accumulator at a row offset,
    storage kept, untouched rows bit-exact), timed beside its bound, one
    message array at a time;
-7. print one JSON line ``{"kernels": [...]}`` with each kernel's launches,
-   errors and times beside its bound;
+7. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
+   (for K1–K4 also the fix-up's), errors and times beside its bound;
 8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
@@ -73,12 +79,16 @@ F32_FLOPS = 67e12
 REPLACES = "sgl_tpu/kernels/pallas_spmm.py:466"
 REPLACES_ACC = "sgl_tpu/kernels/pallas_spmm.py:544"
 SOURCE = "sgl_tpu_torch/kernels/csrc/spmm_csr.cu"
-# f32: the twin adds each row's messages in the kernel's order, so the two
-# differ only by the kernel's fused multiply-add; bf16: one output rounding
+# f32: the twin adds each row's messages in the kernel's order (a long row
+# as its segments' partial sums, added in segment order), so the two differ
+# only by the kernel's fused multiply-add; bf16: one output rounding
 # (2^-8).  The f32 accumulator itself is held to the f32 limit for both.
 TOL = {"f32": 1e-5, "bf16": 1e-2}
 # streaming against one-shot at products scale (``split_order_check``)
 ORDER_TOL = {"f32": 1e-4, "bf16": 1e-2}
+# the f32 kernel against a float64 sum at the main-path shape, whose hub row
+# holds 196,747 nonzeros: no sequential f32 sum spans more than a segment
+F64_TOL = 1e-5
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # the SpMM bench graph of bench.py:115, and the part size of its streaming
 # section (bench.py:185): 5 parts
@@ -122,13 +132,29 @@ def check(ok, msg) -> None:
 
 
 def f64_sum(adj, x):
-    """The same product summed in float64: what the f32 sums lose over long
-    rows, reported beside the check and not held to a limit."""
-    rows = torch.repeat_interleave(
-        torch.arange(adj.num_nodes, device=x.device), torch.diff(adj.rowptr.long())
-    )
-    msgs = x.double().index_select(0, adj.col.long()) * adj.val.double()[:, None]
-    return torch.zeros(x.shape, dtype=torch.float64, device=x.device).index_add_(0, rows, msgs)
+    """The same product summed in float64, one part's messages at a time
+    for a :class:`CsrParts`: what the f32 sums lose over long rows."""
+    y = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    x64 = x.double()
+    for p in getattr(adj, "parts", [adj]):
+        rows = getattr(p, "row_offset", 0) + torch.repeat_interleave(
+            torch.arange(p.rowptr.shape[0] - 1, device=x.device), torch.diff(p.rowptr.long())
+        )
+        y.index_add_(0, rows, x64.index_select(0, p.col.long()) * p.val.double()[:, None])
+    return y
+
+
+def describe_plan(plan, d: int) -> str:
+    """A split plan in one phrase: its segment length, long rows, segments
+    and f32 workspace at width ``d``."""
+    return (f"segments of {plan.split} nonzeros: {plan.num_long} long rows in {plan.num_segments} "
+            f"segments, workspace {plan.workspace_bytes(d) / 1e6:.3f} MB")
+
+
+def check_repeatable(fn, where: str) -> None:
+    """Two runs of ``fn`` give the same bits: no atomics, a fixed order."""
+    first, second = fn(), fn()
+    check(torch.equal(first, second), f"{where}: two runs differ")
 
 
 def compare(adj, x, key: str, where: str) -> tuple:
@@ -157,12 +183,13 @@ def kernel_phase(dev):
     adj = prepare_csr(symmetric_normalized_weights(g, device=dev))
     n, e, d = adj.num_nodes, adj.nnz, g.num_features
     log(f"[2] bench graph: {n} nodes, {e} nonzeros (with self-loops), d={d} "
-        f"({time.perf_counter() - t:.2f} s to build)")
+        f"({time.perf_counter() - t:.2f} s to build); plan: {describe_plan(adj.plan, d)}")
     x32 = torch.as_tensor(g.x, device=dev)
     results = {}
     for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         x = x32.to(dtype)
         abs_err, rel, rel64 = compare(adj, x, key, "the bench shape")
+        check_repeatable(lambda: spmm_csr(adj, x), f"spmm_csr {key} at the bench shape")
         ms = time_ms(lambda: spmm_csr(adj, x))
         plain_ms = time_ms(lambda: spmm_csr_reference(adj, x))
         library_ms, lib_note = library_time(adj, x, spmm_csr_reference(adj, x))
@@ -173,8 +200,8 @@ def kernel_phase(dev):
             f"(limit {TOL[key]:.0e}; vs an f64 sum {rel64:.3e}); kernel {ms:.4f} ms/hop = {e / ms / 1e6:.3f} G edges/s; "
             f"plain twin {plain_ms:.4f} ms; bound {results[key]['bound_ms']:.4f} ms "
             f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; ops {2 * e * d / F32_FLOPS * 1e3:.4f} ms); "
-            f"library {lib_note}")
-    skew_probe(dev, adj, x32)
+            f"library {lib_note}; two runs bit-equal")
+    skew_probe(dev, adj, x32, results["f32"]["ms"])
     return results
 
 
@@ -204,13 +231,16 @@ def library_time(adj, x, want, warmup: int = 3, iters: int = 20) -> tuple:
         return None, f"not supported for {x.dtype}: {type(exc).__name__}: {exc}"
 
 
-def skew_probe(dev, adj, x):
+def skew_probe(dev, adj, x, kernel_ms):
     """Where the f32 kernel's time goes on the power-law graph: its longest
-    row alone (every other row empty), and a degree-uniform graph with the
-    same node count and average degree (``alpha=0``)."""
+    row alone (every other row empty; a CSR built by hand, so its plan is
+    made on first use), against ``kernel_ms`` for the whole graph; the same
+    row as a one-row part of the accumulating form, which writes no other
+    row; and a degree-uniform graph with the same node count and average
+    degree (``alpha=0``)."""
     from sgl_tpu_torch.datasets import random_power_law_graph
     from sgl_tpu_torch.graph import symmetric_normalized_weights
-    from sgl_tpu_torch.kernels import CsrAdj, prepare_csr, spmm_csr
+    from sgl_tpu_torch.kernels import CsrAdj, CsrPart, prepare_csr, spmm_csr, spmm_csr_acc
 
     lengths = torch.diff(adj.rowptr.long())
     top = int(lengths.argmax())
@@ -219,12 +249,18 @@ def skew_probe(dev, adj, x):
     rowptr[top + 1:] = end - beg
     hub = CsrAdj(rowptr, adj.col[beg:end].contiguous(), adj.val[beg:end].contiguous(), adj.num_nodes)
     hub_ms = time_ms(lambda: spmm_csr(hub, x))
+    row = CsrPart(torch.tensor([0, end - beg], dtype=torch.int32, device=dev), hub.col, hub.val,
+                  top, 1, adj.num_nodes)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=dev)
+    row_ms = time_ms(lambda: spmm_csr_acc(row, x, acc))
     g = random_power_law_graph(adj.num_nodes, 25, x.shape[1], seed=0, alpha=0.0)
     uni = prepare_csr(symmetric_normalized_weights(g, device=dev))
     xu = torch.as_tensor(g.x, device=dev)
     uni_ms = time_ms(lambda: spmm_csr(uni, xu))
     log(f"[2] skew probe f32: longest row {top} holds {end - beg} of {adj.nnz} nonzeros "
-        f"(mean row {adj.nnz / adj.num_nodes:.1f}); that row alone {hub_ms:.4f} ms; "
+        f"(mean row {adj.nnz / adj.num_nodes:.1f}); that row alone {hub_ms:.4f} ms, "
+        f"{hub_ms / kernel_ms:.1%} of the whole kernel's {kernel_ms:.4f} ms; as a one-row part "
+        f"(accumulating form, no other row written) {row_ms:.4f} ms, {row_ms / kernel_ms:.1%}; "
         f"degree-uniform graph ({uni.nnz} nonzeros, longest row {int(torch.diff(uni.rowptr.long()).max())}) "
         f"{uni_ms:.4f} ms")
 
@@ -247,7 +283,8 @@ def main_path_phase(dev):
         ("SGC bf16", "bf16", torch.bfloat16,
          lambda: SGC(3, ds.num_features, ds.num_classes)),
     )
-    launches = {"f32": 0, "bf16": 0}
+    # the first pass's launches by instantiation, and the fix-up's as "fixup_<key>"
+    launches = {"f32": 0, "bf16": 0, "fixup_f32": 0, "fixup_bf16": 0}
     for name, key, pdtype, make in runs:
         model = make()
         reset_launches()
@@ -256,30 +293,38 @@ def main_path_phase(dev):
             precompute_dtype=pdtype,
         )
         counts = dict(spmm_csr.launches)
-        for k in launches:
+        fixups = dict(spmm_csr.fixup_launches)
+        for k in ("f32", "bf16"):
             launches[k] += counts[k]
+            launches["fixup_" + k] += fixups[k]
         pf = model.processed_feature
         check(pf.is_cuda and torch.isfinite(pf.float()).all().item(), f"{name}: bad features")
         check(counts[key] >= 3, f"{name}: the {key} kernel ran {counts[key]} times, expected >= 3")
+        # the graph's hub rows are long: every product runs the fix-up too
+        check(fixups[key] == counts[key], f"{name}: {fixups[key]} fix-ups for {counts[key]} products")
         check(0.0 <= task.test_acc <= 1.0, f"{name}: test accuracy {task.test_acc}")
         epochs_ms = [s * 1e3 for s in task.epoch_seconds]
-        log(f"[3] {name}: launches {counts}; features {tuple(pf.shape)} {pf.dtype}; "
+        log(f"[3] {name}: launches {counts}, fix-up launches {fixups}; features {tuple(pf.shape)} {pf.dtype}; "
             f"preprocess {task.preprocess_seconds:.4f} s; train epoch ms {[round(m, 3) for m in epochs_ms]} "
             f"(median {statistics.median(epochs_ms):.3f}); best-val test acc {task.test_acc:.4f}")
 
     # each kernel against its twin at the shape the main path gave it (the
     # adjacency its LaplacianGraphOp(r=0.5) built), after the counts were read
-    adj =prepare_csr(symmetric_normalized_weights(ds.graph, device=dev))
+    adj = prepare_csr(symmetric_normalized_weights(ds.graph, device=dev))
     x32 = torch.as_tensor(ds.x, device=dev)
     errs = {}
     for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         x = x32.to(dtype)
         errs[key] = compare(adj, x, key, "the main-path shape")
+        if key == "f32":
+            check(errs[key][2] <= F64_TOL, f"spmm_csr f32 vs a float64 sum at the main-path shape: "
+                                           f"{errs[key][2]:.3e} (limit {F64_TOL:.0e})")
         ms = time_ms(lambda: spmm_csr(adj, x))
         log(f"[3] spmm_csr {key} at the main-path shape ({adj.num_nodes} nodes, {adj.nnz} nonzeros, "
-            f"d={x.shape[1]}, longest row {int(torch.diff(adj.rowptr.long()).max())}): "
-            f"max abs err {errs[key][0]:.3e}, max rel err {errs[key][1]:.3e} "
-            f"(vs an f64 sum {errs[key][2]:.3e}); kernel {ms:.4f} ms/hop")
+            f"d={x.shape[1]}, longest row {int(torch.diff(adj.rowptr.long()).max())}; plan: "
+            f"{describe_plan(adj.plan, x.shape[1])}): max abs err {errs[key][0]:.3e}, max rel err "
+            f"{errs[key][1]:.3e} (vs an f64 sum {errs[key][2]:.3e}"
+            f"{f', limit {F64_TOL:.0e}' if key == 'f32' else ''}); kernel {ms:.4f} ms/hop")
     return launches, errs
 
 
@@ -330,8 +375,9 @@ def ptxas_summary(log_text: str) -> list:
 def reset_launches() -> None:
     from sgl_tpu_torch.kernels import spmm_csr
 
-    for k in spmm_csr.launches:
-        spmm_csr.launches[k] = 0
+    for counts in (spmm_csr.launches, spmm_csr.fixup_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def stream_bytes(parts, x) -> int:
@@ -342,14 +388,16 @@ def stream_bytes(parts, x) -> int:
 
 
 def describe_parts(parts) -> str:
-    """Each part's nonzeros, rows and longest row, and how many rows are
-    cut between consecutive parts."""
+    """Each part's nonzeros, rows, longest row and plan, and how many rows
+    are cut between consecutive parts."""
     pairs = zip(parts.parts[:-1], parts.parts[1:])
     cut = sum(a.row_offset + a.num_rows - 1 == b.row_offset for a, b in pairs)
     return (f"nonzeros {[p.nnz for p in parts]}, rows "
             f"{[(p.row_offset, p.row_offset + p.num_rows) for p in parts]}, longest rows "
             f"{[int(torch.diff(p.rowptr.long()).max()) for p in parts]}, "
-            f"{cut} of {len(parts) - 1} boundaries inside a row")
+            f"{cut} of {len(parts) - 1} boundaries inside a row; plans (segments of "
+            f"{parts.parts[0].plan.split}): long rows {[p.plan.num_long for p in parts]}, segments "
+            f"{[p.plan.num_segments for p in parts]}")
 
 
 def check_accumulate(part, x, where: str) -> tuple:
@@ -423,6 +471,8 @@ def streaming_bench_phase(dev, bench):
         abs_o, rel_o = rel_err(y, one_shot)
         check(rel_t <= TOL[key], f"streaming {key} vs its twin at the bench shape: {rel_t:.3e}")
         check(rel_o <= TOL[key], f"streaming {key} vs one-shot at the bench shape: {rel_o:.3e}")
+        check_repeatable(lambda: spmm_csr_streaming(parts, x), f"streaming {key} at the bench shape")
+        rel64 = rel_err(y, f64_sum(parts, x))[1]
         del twin, one_shot
         acc_abs, acc_rel = check_accumulate(parts.parts[len(parts) // 2], x, f"[4] acc_{key} contract")
         # each part's launch alone, then the whole call, then the twin
@@ -435,7 +485,8 @@ def streaming_bench_phase(dev, bench):
             call_ms=call_ms, plain_ms=plain_ms, library_ms=bench[key]["library_ms"], **b,
         )
         log(f"[4] streaming {key}: vs twin max abs err {abs_t:.3e}, max rel err {rel_t:.3e}; "
-            f"vs one-shot spmm_csr max rel err {rel_o:.3e} (limit {TOL[key]:.0e}); "
+            f"vs one-shot spmm_csr max rel err {rel_o:.3e} (limit {TOL[key]:.0e}); vs an f64 sum "
+            f"{rel64:.3e}; two runs bit-equal; "
             f"acc_{key} launches {sum(per_part):.4f} ms (per part {[round(t, 4) for t in per_part]}); "
             f"spmm_csr_streaming call {call_ms:.4f} ms; plain twin {plain_ms:.4f} ms; "
             f"bound {b['bound_ms']:.4f} ms ({stream_bytes(parts, x) / 1e6:.1f} MB at 3.35 TB/s, "
@@ -447,12 +498,12 @@ def streaming_bench_phase(dev, bench):
 
 def split_order_check(adj, streamed, one_shot, x, where: str) -> str:
     """Streaming against one-shot where rows of millions of nonzeros are cut
-    between parts: a cut row sums its shares apart, and over such rows two
-    f32 orders drift apart by about what one long f32 sum loses (the main
-    path's 196,747-nonzero hub row is 5.9e-5 of max|y| from a float64 sum),
-    so they are held to ``ORDER_TOL``, which a wrong part still breaks by
-    orders of magnitude.  The worst row is summed in float64 to show how far
-    each is from exact.  Returns a note for the log."""
+    between parts: a cut row sums its shares apart, each share cut into
+    segments from its own first nonzero, so the two add the same terms in
+    two f32 orders.  They are held to ``ORDER_TOL``, which a wrong part
+    still breaks by orders of magnitude.  The worst row is summed in
+    float64 to show how far each is from exact.  Returns a note for the
+    log."""
     abs_o, rel_o = rel_err(streamed, one_shot)
     key = "bf16" if x.dtype == torch.bfloat16 else "f32"
     check(rel_o <= ORDER_TOL[key], f"{where}: streaming vs one-shot spmm_csr {rel_o:.3e}")
@@ -488,16 +539,22 @@ def products_phase(dev):
         t = time.perf_counter()
         out = products_scale_demo.main(**PRODUCTS, dtype=dtype, train=train)
         wall = time.perf_counter() - t
-        counts = dict(spmm_csr.launches)
+        counts, fixups = dict(spmm_csr.launches), dict(spmm_csr.fixup_launches)
         parts, stack = out["parts"], out["hops"]
         want_counts = {k: 0 for k in counts}
         want_counts["acc_" + key] = PRODUCTS["hops"] * len(parts)
         check(counts == want_counts, f"products {key}: launches {counts}, expected {want_counts}")
+        # one fix-up per hop for each part that holds a long row
+        want_fixups = {k: 0 for k in fixups}
+        want_fixups["acc_" + key] = PRODUCTS["hops"] * sum(p.plan.num_long > 0 for p in parts)
+        check(fixups == want_fixups and want_fixups["acc_" + key] > 0,
+              f"products {key}: fix-up launches {fixups}, expected {want_fixups}")
         check(stack.shape == (PRODUCTS["hops"] + 1, PRODUCTS["n"], PRODUCTS["d"]), tuple(stack.shape))
         check(torch.isfinite(stack.float()).all().item(), f"products {key}: non-finite hops")
         hop_s = out["hop_seconds"]
         steady = min(hop_s[1:])
-        log(f"[5] products {key}: launches {counts} (hops x parts = {PRODUCTS['hops']} x {len(parts)}); "
+        log(f"[5] products {key}: launches {counts} (hops x parts = {PRODUCTS['hops']} x {len(parts)}), "
+            f"fix-up launches {fixups}; "
             f"graph build {out['graph_seconds']:.4f} s; normalize + CSR + parts {out['prepare_seconds']:.4f} s; "
             f"{out['nnz']} nonzeros in {len(parts)} parts: {describe_parts(parts)}; "
             f"s/hop {[round(v, 6) for v in hop_s]} "
@@ -526,18 +583,24 @@ def products_phase(dev):
         # the one-shot kernel on the same CSR: what the split costs on this card
         one_shot = spmm_csr(out["csr"], x)
         order_note = split_order_check(out["csr"], stack[1], one_shot, x, f"products {key}")
+        if key == "f32":
+            exact = f64_sum(parts, x)
+            order_note += (f"; vs an f64 sum: streaming {rel_err(stack[1], exact)[1]:.3e}, one-shot "
+                           f"{rel_err(one_shot, exact)[1]:.3e}")
+            del exact
         del one_shot
         one_shot_ms = time_ms(lambda: spmm_csr(out["csr"], x), warmup=1, iters=3)
         library_ms, lib_note = library_time(out["csr"], x, stack[1], 1, 5)
         b = bound(stream_bytes(parts, x), parts.nnz, x.shape[1])
         log(f"[5] products {key}: hop 1 vs streaming twin max abs err {abs_err:.3e}, max rel err {rel:.3e} "
             f"(limit {TOL[key]:.0e}); {order_note}; acc_{key} launches alone {sum(per_part):.4f} ms "
-            f"(per part {[round(t, 4) for t in per_part]}); one-shot spmm_csr {key} {one_shot_ms:.4f} ms; "
-            f"plain twin {plain_ms:.4f} ms; "
+            f"(per part {[round(t, 4) for t in per_part]}); one-shot spmm_csr {key} {one_shot_ms:.4f} ms "
+            f"(plan: {describe_plan(out['csr'].plan, x.shape[1])}); plain twin {plain_ms:.4f} ms; "
             f"bound {b['bound_ms']:.4f} ms ({stream_bytes(parts, x) / 1e9:.4f} GB at 3.35 TB/s, "
             f"ops {2 * parts.nnz * x.shape[1] / F32_FLOPS * 1e3:.4f} ms); library {lib_note}")
         results[key] = dict(
-            launches=counts["acc_" + key], abs_err=max(abs_err, acc_abs), rel_err=max(rel, acc_rel),
+            launches=counts["acc_" + key], fixup_launches=fixups["acc_" + key],
+            abs_err=max(abs_err, acc_abs), rel_err=max(rel, acc_rel),
             ms=sum(per_part), plain_ms=plain_ms, library_ms=library_ms, **b,
         )
         del out, stack, x, parts
@@ -750,7 +813,7 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
         r = bench[key]
         kernels.append({
             "name": f"spmm_csr_{key}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": launches[key],
+            "launches": launches[key], "fixup_launches": launches.get("fixup_" + key),
             # the larger error of the two shapes checked (bench and main path)
             "max_abs_err": max(r["abs_err"], main_errs[key][0]),
             "max_rel_err": max(r["rel_err"], main_errs[key][1]),
@@ -761,7 +824,7 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
         p, sb = products[key], stream_bench[key]
         kernels.append({
             "name": f"spmm_csr_acc_{key}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES_ACC, "launches": p["launches"],
+            "replaces": REPLACES_ACC, "launches": p["launches"], "fixup_launches": p.get("fixup_launches"),
             # the larger error of the two shapes checked (bench and products)
             "max_abs_err": max(p["abs_err"], sb["abs_err"]),
             "max_rel_err": max(p["rel_err"], sb["rel_err"]),

@@ -5,7 +5,9 @@
   ``--micro7``, ``--micro9``), each a PyTorch gather followed by the
   segment-reduce kernel;
 * :mod:`sgl_tpu_torch.dev.exp_gather_dma` — D1's gather-rate probe;
-* :mod:`sgl_tpu_torch.dev.exp_acc_alias` — D2's accumulate-in-place probe.
+* :mod:`sgl_tpu_torch.dev.exp_acc_alias` — D2's accumulate-in-place probe;
+* :mod:`sgl_tpu_torch.dev.tune_spmm_csr` — the CSR SpMM kernel's design
+  constants, each timed against other values (the card only).
 
 Each runs on the GPU unless ``--device cpu`` is given, and imports nothing
 of JAX, ``sgl_tpu`` or ``dev/``.  Times are CUDA events on the card and the
@@ -32,29 +34,30 @@ def device_label(device: torch.device) -> str:
 
 
 def time_ms(fn, device: torch.device = None, warmup: int = 3, iters: int = 20) -> float:
-    """Median milliseconds of ``fn()`` over ``iters`` runs after ``warmup``:
-    CUDA events on the card (the current one when ``device`` is None), the
-    host clock elsewhere."""
+    """Milliseconds of one ``fn()`` after ``warmup`` runs: on the card (the
+    current one when ``device`` is None), CUDA events around ``iters`` runs
+    launched back to back, over ``iters``, so the host's work for one call
+    overlaps the device's for the one before; elsewhere the host clock's
+    median over ``iters`` runs."""
     device = torch.device("cuda") if device is None else torch.device(device)
     for _ in range(warmup):
         fn()
-    times = []
     if device.type != "cuda":
+        times = []
         for _ in range(iters):
             t = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t) * 1e3)
         return statistics.median(times)
     torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:

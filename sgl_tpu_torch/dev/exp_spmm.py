@@ -30,7 +30,7 @@ Modes (the default is ``--check``); every mode uses the graph of
 ``--graph`` (default the SpMM bench graph, ``random_power_law_graph(200_000,
 25, 128, seed=0)``; the JAX harness's ``--check`` used ``2000,8,64``):
 
-* ``--check``: each variant against ``spmm_csr_reference`` within
+* ``--check``: each variant against :func:`sequential_reference` within
   :data:`LIMITS`;
 * ``--perf``: ms/hop and G nonzeros/s of one-shot ``spmm_csr`` and the two
   factored forms;
@@ -56,7 +56,7 @@ from sgl_tpu_torch.datasets import random_power_law_graph
 from sgl_tpu_torch.dev import device_label, rel_err, time_ms
 from sgl_tpu_torch.device import resolve_device
 from sgl_tpu_torch.graph import symmetric_normalized_weights
-from sgl_tpu_torch.kernels import CsrAdj, prepare_csr, segment_reduce, spmm_csr, spmm_csr_reference
+from sgl_tpu_torch.kernels import CsrAdj, SparseAdj, prepare_csr, segment_reduce, spmm_csr, spmm_segment
 
 #: the SpMM bench graph (``bench.py:115``): nodes, average degree, features
 BENCH = (200_000, 25, 128)
@@ -64,7 +64,7 @@ VARIANTS = ("factored", "factored_f32", "packed", "a", "a2", "b")
 #: the TPU kernel each variant's segment sum replaces
 TPU_KERNEL = {"factored": "D3", "factored_f32": "D4", "packed": "D5", "a": "D6 A",
               "a2": "D6 A'", "b": "D6 B"}
-#: max|y - y_ref| / max|y_ref| against ``spmm_csr_reference`` in f32.
+#: max|y - y_ref| / max|y_ref| against :func:`sequential_reference` in f32.
 #: ``a2``: the reference's own messages, summed in its order; the other
 #: f32 forms round each message differently (``factored_f32`` scales by
 #: ``g`` before the sum and ``f`` after it; ``a`` multiplies by ``wh + wl``,
@@ -181,10 +181,20 @@ def spmm_b(ops: Operands, x: torch.Tensor) -> torch.Tensor:
     return spmm_variant("b", ops, x)
 
 
+def sequential_reference(csr: CsrAdj, x: torch.Tensor) -> torch.Tensor:
+    """``csr @ x`` with each row summed in f32 in edge order, in one
+    sequence, as the segment-reduce kernels sum (``spmm_csr_reference``
+    follows the CSR kernel instead, which cuts long rows into segments)."""
+    rows = torch.repeat_interleave(
+        torch.arange(csr.num_nodes, dtype=torch.int32, device=csr.device), torch.diff(csr.rowptr.long())
+    )
+    return spmm_segment(SparseAdj(csr.col, rows, csr.val, csr.num_nodes, True), x)
+
+
 def check(ops: Operands, x: torch.Tensor, variants=VARIANTS) -> dict:
-    """Each variant against ``spmm_csr_reference`` on f32 ``x``; raises
-    past :data:`LIMITS`.  Returns ``{variant: max rel err}``."""
-    ref = spmm_csr_reference(ops.csr, x.float())
+    """Each variant against :func:`sequential_reference` on f32 ``x``;
+    raises past :data:`LIMITS`.  Returns ``{variant: max rel err}``."""
+    ref = sequential_reference(ops.csr, x.float())
     errs = {}
     for v in variants:
         y = spmm_variant(v, ops, x)
@@ -192,10 +202,10 @@ def check(ops: Operands, x: torch.Tensor, variants=VARIANTS) -> dict:
             raise RuntimeError(f"{v}: bad output {tuple(y.shape)}")
         errs[v] = rel_err(y, ref)[1]
         del y
-        print(f"err {v} ({TPU_KERNEL[v]}) vs spmm_csr_reference: {errs[v]:.3e} "
+        print(f"err {v} ({TPU_KERNEL[v]}) vs sequential_reference: {errs[v]:.3e} "
               f"(limit {LIMITS[v]:.0e})", flush=True)
         if errs[v] > LIMITS[v]:
-            raise RuntimeError(f"{v} disagrees with spmm_csr_reference: {errs[v]:.3e}")
+            raise RuntimeError(f"{v} disagrees with sequential_reference: {errs[v]:.3e}")
     return errs
 
 

@@ -109,8 +109,14 @@ def load(name: str) -> ctypes.CDLL:
 
 def load_entries(name: str, entries: Mapping[str, Sequence]) -> ctypes.CDLL:
     """:func:`load` with the argument types of each named entry point set
-    (the stream, last, included) and every entry returning an ``int``."""
-    lib = load(name)
+    (:func:`bind`)."""
+    return bind(load(name), entries)
+
+
+def bind(lib: ctypes.CDLL, entries: Mapping[str, Sequence]) -> ctypes.CDLL:
+    """Set the argument types of each named entry point of ``lib`` (the
+    stream, last, included), every entry returning an ``int``; returns
+    ``lib``."""
     for fn, argtypes in entries.items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)

@@ -44,14 +44,20 @@ def segment_sum_f32(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
     """:func:`spmm_segment` before its cast: the f32 sum for any ``x``."""
     msgs = x.index_select(0, adj.src.long()).float() * adj.w[:, None].float()
     y = torch.zeros((adj.num_nodes, x.shape[1]), dtype=torch.float32, device=x.device)
+    return add_rows_(y, adj.dst, msgs)
+
+
+def add_rows_(y: torch.Tensor, rows: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``y[rows[i]] += values[i]`` in place, each row's values added one by
+    one in the order of ``i``; returns ``y``."""
     if y.is_cuda:
         # index_add_ on CUDA adds with atomics, in an order that changes from
         # run to run; index_put_(accumulate=True) sorts the rows stably and
-        # adds each row's messages in edge order, as the CSR kernel does, so
-        # the two differ only by the kernel's fused multiply-add rounding.
-        y.index_put_((adj.dst.long(),), msgs, accumulate=True)
+        # adds each row's values in order, as the CSR kernel does, so the two
+        # differ only by the kernel's fused multiply-add rounding.
+        y.index_put_((rows.long(),), values, accumulate=True)
     else:
-        y.index_add_(0, adj.dst.long(), msgs)
+        y.index_add_(0, rows.long(), values)
     return y
 
 

@@ -9,14 +9,22 @@ unit and its gather cost.  On the GPU the same sum is one kernel over a
 plain dst-CSR (``csrc/spmm_csr.cu``): the gather, the ×w and the f32 sum
 happen inside it.
 
+The kernel balances nonzeros, not rows, across warps: every row of at most
+:data:`SPLIT_NNZ` nonzeros is one warp task, and a longer row is cut into
+segments of :data:`SPLIT_NNZ` consecutive nonzeros whose f32 partial sums a
+second launch adds in segment order.  The cut is a :class:`SplitPlan`,
+built once per CSR (and once per part) on its device and kept with it, so
+every hop reuses it.  The twins sum in the same order.
+
 One-shot product (``_segment_reduce_mxu``, TPU kernels K1/K2):
 
 * :func:`prepare_csr` — the counterpart of ``prepare_chunked``: sort by dst
-  (stable), drop ``w == 0`` (graph padding vanishes), build ``rowptr``.
-* :func:`spmm_csr` — the wrapper: launches the kernel on a CUDA tensor,
+  (stable), drop ``w == 0`` (graph padding vanishes), build ``rowptr`` and
+  the plan.
+* :func:`spmm_csr` — the wrapper: launches the kernels on a CUDA tensor,
   runs :func:`spmm_csr_reference` on a CPU tensor, raises on anything else.
-* :func:`spmm_csr_reference` — the plain PyTorch twin (gather, ×w, a
-  scatter-add into f32 in edge order, cast); the CPU path and the
+* :func:`spmm_csr_reference` — the plain PyTorch twin (gather, ×w, the
+  scatter-adds into f32 in the kernel's order, cast); the CPU path and the
   yardstick the kernel is held against.
 
 Streaming product, part by part (``prepare_chunked_parts`` /
@@ -26,15 +34,17 @@ fit at once; the CSR kernel gathers inside and never forms them, so here
 the parts buy no memory and exist to carry K3/K4 over:
 
 * :func:`prepare_csr_parts` — split a CSR into parts of balanced nonzero
-  counts (:class:`CsrParts`);
+  counts (:class:`CsrParts`), each with its own plan;
 * :func:`spmm_csr_acc` / :func:`spmm_csr_acc_reference` — add one part's
   product into an f32 accumulator, in place;
 * :func:`spmm_csr_streaming` / :func:`spmm_csr_streaming_reference` — the
   whole product, part by part.
 
-``spmm_csr.launches`` counts kernel launches by instantiation: ``"f32"``,
-``"bf16"``, ``"acc_f32"``, ``"acc_bf16"``.  No gradient: propagation is
-training-free and runs under ``no_grad``.
+``spmm_csr.launches`` counts products by instantiation (one first-pass
+launch each): ``"f32"``, ``"bf16"``, ``"acc_f32"``, ``"acc_bf16"``;
+``spmm_csr.fixup_launches`` counts the second-pass launches, made only
+when the plan has a long row.  No gradient: propagation is training-free
+and runs under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -42,15 +52,86 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from sgl_tpu_torch.kernels import _build
-from sgl_tpu_torch.kernels.sparse import SparseAdj, segment_sum_f32, spmm_segment
+from sgl_tpu_torch.kernels.sparse import SparseAdj, add_rows_, segment_sum_f32
 
 _INT32_MAX = 2**31 - 1
+
+#: The longest row that is one warp task; longer rows are cut into segments
+#: of this many nonzeros.  A constant of the design, the ``kSplitNnz`` of
+#: ``csrc/spmm_csr.cu``, which cuts by it too: about the ~620 nonzeros a
+#: warp that E / (132 SMs x 64 warps) gives at the SpMM bench shape, and
+#: timed on the H100 against 256 and 1024 with
+#: ``python -m sgl_tpu_torch.dev.tune_spmm_csr`` (``PERF.md``).
+SPLIT_NNZ = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the kernel cuts the long rows of one CSR (or part) into warp tasks.
+
+    A row of at most ``split`` nonzeros is one task.  Long row
+    ``long_rows[k]`` (more than ``split``) is cut into the consecutive
+    segments ``seg_ptr[k] .. seg_ptr[k+1]``; segment ``t`` covers the
+    nonzeros ``[seg_beg[t], seg_end[t])``: ``split`` of them, the row's last
+    segment fewer.  All int32, on the CSR's device.  ``rowptr`` is the row
+    pointer it cuts; the wrappers refuse a plan made for another, or with
+    another ``split`` than :data:`SPLIT_NNZ`, by which the kernel cuts.
+    """
+
+    seg_beg: torch.Tensor
+    seg_end: torch.Tensor
+    seg_ptr: torch.Tensor
+    long_rows: torch.Tensor
+    split: int
+    rowptr: torch.Tensor
+
+    @property
+    def num_segments(self) -> int:
+        return int(self.seg_beg.shape[0])
+
+    @property
+    def num_long(self) -> int:
+        return int(self.long_rows.shape[0])
+
+    def workspace_bytes(self, d: int) -> int:
+        """Bytes of the f32 ``[segments, d]`` partial sums a product needs."""
+        return 4 * self.num_segments * d
+
+
+def _make_plan(rowptr: torch.Tensor, split: int = SPLIT_NNZ) -> SplitPlan:
+    """The plan of ``rowptr`` for segments of ``split`` nonzeros, in plain
+    torch on ``rowptr``'s device.  The port's plans are of
+    :data:`SPLIT_NNZ`; ``dev/tune_spmm_csr.py`` makes others for kernels
+    built with another ``kSplitNnz``."""
+    r = rowptr.long()
+    lengths = r[1:] - r[:-1]
+    long_rows = torch.nonzero(lengths > split).flatten()
+    counts = (lengths[long_rows] + split - 1) // split
+    seg_ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    n_seg = int(seg_ptr[-1])
+    owner = torch.repeat_interleave(
+        torch.arange(long_rows.shape[0], device=r.device), counts, output_size=n_seg
+    )
+    beg = r[long_rows][owner] + (torch.arange(n_seg, device=r.device) - seg_ptr[owner]) * split
+    end = torch.minimum(beg + split, r[long_rows + 1][owner])
+
+    def i32(t):
+        return t.to(torch.int32).contiguous()
+
+    return SplitPlan(i32(beg), i32(end), i32(seg_ptr), i32(long_rows), split, rowptr)
+
+
+def _plan(csr) -> SplitPlan:
+    """``csr``'s plan; a CSR built by hand without one gets it on first use."""
+    if csr.plan is None:
+        object.__setattr__(csr, "plan", _make_plan(csr.rowptr))
+    return csr.plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,13 +139,15 @@ class CsrAdj:
     """Destination-row CSR: row ``r`` holds the edges into node ``r``.
 
     ``rowptr`` int32 ``[N+1]``; ``col`` int32 ``[nnz]`` (the edge's source);
-    ``val`` f32 ``[nnz]`` (normalized weight, never 0).
+    ``val`` f32 ``[nnz]`` (normalized weight, never 0); ``plan`` the cut of
+    its long rows (:class:`SplitPlan`; built on first use when missing).
     """
 
     rowptr: torch.Tensor
     col: torch.Tensor
     val: torch.Tensor
     num_nodes: int
+    plan: Optional[SplitPlan] = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def nnz(self) -> int:
@@ -76,7 +159,8 @@ class CsrAdj:
 
 
 def prepare_csr(adj: SparseAdj) -> CsrAdj:
-    """Dst-CSR of ``adj`` on ``adj``'s device; build once per graph."""
+    """Dst-CSR of ``adj``, with its plan, on ``adj``'s device; build once
+    per graph."""
     src, dst, w = adj.src, adj.dst, adj.w
     if not adj.sorted_by_dst:
         order = torch.argsort(dst, stable=True)
@@ -88,51 +172,85 @@ def prepare_csr(adj: SparseAdj) -> CsrAdj:
         raise ValueError(f"{nnz} edges overflow the int32 row pointers of the CSR kernel")
     n = adj.num_nodes
     counts = torch.bincount(dst.long(), minlength=n)
-    rowptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    rowptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
     return CsrAdj(
-        rowptr.to(torch.int32),
+        rowptr,
         src.to(torch.int32).contiguous(),
         w.to(torch.float32).contiguous(),
         n,
+        _make_plan(rowptr),
     )
+
+
+def _split_sum_f32(rowptr, col, val, num_rows: int, plan: SplitPlan, x: torch.Tensor) -> torch.Tensor:
+    """The f32 row sums in the kernel's order: a row of at most
+    ``plan.split`` nonzeros in edge order; a longer row as its segments'
+    sums (each in edge order), added in segment order."""
+    dst = torch.repeat_interleave(
+        torch.arange(num_rows, dtype=torch.int32, device=col.device), torch.diff(rowptr.long())
+    )
+    if plan.num_segments == 0:
+        return segment_sum_f32(SparseAdj(col, dst, val, num_rows, True), x)
+    # the nonzeros of segment t go to output slot num_rows + t
+    counts = (plan.seg_end - plan.seg_beg).long()
+    seg = torch.repeat_interleave(torch.arange(plan.num_segments, device=col.device), counts)
+    first = torch.repeat_interleave(plan.seg_beg.long() - (counts.cumsum(0) - counts), counts)
+    dst[first + torch.arange(seg.shape[0], device=col.device)] = (num_rows + seg).to(torch.int32)
+    sums = segment_sum_f32(SparseAdj(col, dst, val, num_rows + plan.num_segments), x)
+    owner = torch.repeat_interleave(plan.long_rows, torch.diff(plan.seg_ptr.long()))
+    return add_rows_(sums[:num_rows], owner, sums[num_rows:])
 
 
 def spmm_csr_reference(adj: CsrAdj, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch ``adj @ x``: gather, ×w, scatter-add in f32, cast."""
-    return spmm_segment(_coo(adj.rowptr, adj.col, adj.val, adj.num_nodes), x)
-
-
-def _coo(rowptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor, num_rows: int) -> SparseAdj:
-    rows = torch.repeat_interleave(
-        torch.arange(num_rows, dtype=torch.int32, device=col.device), torch.diff(rowptr.long())
-    )
-    return SparseAdj(col, rows, val, num_rows, True)
+    """Plain PyTorch ``adj @ x``: gather, ×w, the scatter-adds in f32 in
+    the kernel's order, cast."""
+    return _split_sum_f32(adj.rowptr, adj.col, adj.val, adj.num_nodes, _plan(adj), x).to(x.dtype)
 
 
 # kernel instantiation -> (C entry point, number of int64 arguments)
 _ENTRY = {
-    "f32": ("sgl_spmm_csr_f32", 2),  # n, d
-    "bf16": ("sgl_spmm_csr_bf16", 2),
-    "acc_f32": ("sgl_spmm_csr_acc_f32", 3),  # row_offset, n, d
-    "acc_bf16": ("sgl_spmm_csr_acc_bf16", 3),
+    "f32": ("sgl_spmm_csr_f32", 4),  # n, d, segments, long rows
+    "bf16": ("sgl_spmm_csr_bf16", 4),
+    "acc_f32": ("sgl_spmm_csr_acc_f32", 5),  # row_offset, then the same
+    "acc_bf16": ("sgl_spmm_csr_acc_bf16", 5),
 }
 _DTYPE_KEY = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def signatures() -> dict:
+    """The C argument types of each entry point of ``spmm_csr.cu``."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    return {fn: [ptr] * 10 + [i64] * n_ints + [ptr] for fn, n_ints in _ENTRY.values()}
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures set."""
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    return _build.load_entries(
-        "spmm_csr", {fn: [ptr] * 5 + [i64] * n_ints + [ptr] for fn, n_ints in _ENTRY.values()}
+    return _build.load_entries("spmm_csr", signatures())
+
+
+def run_passes(lib: ctypes.CDLL, key: str, plan: SplitPlan, rowptr, col, val, x, out, *ints) -> None:
+    """Both passes of instantiation ``key`` of ``lib`` on ``x``'s device's
+    current stream into ``out``, with a workspace of its own; raise on a
+    refused launch.  ``ints`` are the arguments before the plan's (``n, d``
+    or ``row_offset, n, d``).  Checks nothing and counts nothing: the
+    wrappers do."""
+    work = torch.empty((plan.num_segments, x.shape[1]), dtype=torch.float32, device=x.device)
+    _build.call(
+        lib, _ENTRY[key][0], x.device,
+        rowptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(), out.data_ptr(),
+        plan.seg_beg.data_ptr(), plan.seg_end.data_ptr(), plan.seg_ptr.data_ptr(),
+        plan.long_rows.data_ptr(), work.data_ptr(),
+        *ints, plan.num_segments, plan.num_long,
     )
 
 
-def _launch(key: str, device: torch.device, *args) -> None:
-    """Call the C entry point of ``key`` on ``device``'s current stream;
-    raise on a refused launch, count it otherwise."""
-    _build.call(_library(), _ENTRY[key][0], device, *args)
+def _launch(key: str, plan: SplitPlan, rowptr, col, val, x, out, *ints) -> None:
+    """:func:`run_passes` on the package's library, counted."""
+    run_passes(_library(), key, plan, rowptr, col, val, x, out, *ints)
     spmm_csr.launches[key] += 1
+    if plan.num_long:
+        spmm_csr.fixup_launches[key] += 1
 
 
 def _check_features(x: torch.Tensor, num_rows=None) -> None:
@@ -145,43 +263,53 @@ def _check_features(x: torch.Tensor, num_rows=None) -> None:
         raise ValueError("spmm_csr needs contiguous features")
 
 
-def _check_csr(owner: str, device: torch.device, rowptr, col, val, num_rows: int) -> None:
-    nnz = int(col.shape[0])
+def _check_csr(owner: str, device: torch.device, csr, num_rows: int) -> SplitPlan:
+    """Check ``csr``'s arrays and that its plan is its own and cut by
+    :data:`SPLIT_NNZ`; returns the plan (whose arrays :func:`_make_plan`
+    made together, on one device)."""
+    nnz = int(csr.col.shape[0])
     for name, t, dtype, length in (
-        ("rowptr", rowptr, torch.int32, num_rows + 1),
-        ("col", col, torch.int32, nnz),
-        ("val", val, torch.float32, nnz),
+        ("rowptr", csr.rowptr, torch.int32, num_rows + 1),
+        ("col", csr.col, torch.int32, nnz),
+        ("val", csr.val, torch.float32, nnz),
     ):
         if t.device != device:
             raise ValueError(f"{owner}.{name} is on {t.device}, features on {device}")
         if t.dtype != dtype or t.dim() != 1 or t.shape[0] != length or not t.is_contiguous():
             raise ValueError(f"{owner}.{name} must be a contiguous {dtype} vector of {length}")
+    plan = _plan(csr)
+    if plan.rowptr is not csr.rowptr:
+        raise ValueError(f"{owner}.plan was built for another row pointer")
+    if plan.split != SPLIT_NNZ:
+        raise ValueError(f"{owner}.plan has segments of {plan.split} nonzeros; the kernel cuts "
+                         f"rows of more than {SPLIT_NNZ}")
+    if plan.seg_ptr.device != device:
+        raise ValueError(f"{owner}.plan is on {plan.seg_ptr.device}, features on {device}")
+    return plan
 
 
 def spmm_csr(adj: CsrAdj, x: torch.Tensor) -> torch.Tensor:
     """``y = adj @ x`` with ``y`` in ``x``'s dtype (f32 or bf16).
 
-    On a CUDA tensor this launches the CSR kernel on the current stream or
-    raises; on a CPU tensor it runs :func:`spmm_csr_reference`.
+    On a CUDA tensor this launches the CSR kernel (and, when a row is
+    long, its fix-up) on the current stream or raises; on a CPU tensor it
+    runs :func:`spmm_csr_reference`.
     """
     if x.device.type == "cpu":
         return spmm_csr_reference(adj, x)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_csr runs on CUDA or CPU tensors, got {x.device}")
     _check_features(x, adj.num_nodes)
-    _check_csr("CsrAdj", x.device, adj.rowptr, adj.col, adj.val, adj.num_nodes)
+    plan = _check_csr("CsrAdj", x.device, adj, adj.num_nodes)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    _launch(
-        _DTYPE_KEY[x.dtype], x.device,
-        adj.rowptr.data_ptr(), adj.col.data_ptr(), adj.val.data_ptr(),
-        x.data_ptr(), y.data_ptr(), adj.num_nodes, x.shape[1],
-    )
+    _launch(_DTYPE_KEY[x.dtype], plan, adj.rowptr, adj.col, adj.val, x, y, adj.num_nodes, x.shape[1])
     return y
 
 
 spmm_csr.launches = {key: 0 for key in _ENTRY}
+spmm_csr.fixup_launches = {key: 0 for key in _ENTRY}
 
 
 # -- streaming: the product part by part --------------------------------------
@@ -196,7 +324,8 @@ class CsrPart:
     ``[e_lo, e_hi]``, minus ``e_lo``.  ``col``/``val`` are views of the
     global arrays' ``[e_lo, e_hi)`` slice, not copies.  A row cut between
     two parts lies in both, each with its share of the nonzeros.
-    ``num_nodes`` is the whole graph's: the rows ``x`` must have.
+    ``num_nodes`` is the whole graph's: the rows ``x`` must have.  ``plan``
+    cuts the part's own long rows (built on first use when missing).
     """
 
     rowptr: torch.Tensor
@@ -205,6 +334,7 @@ class CsrPart:
     row_offset: int
     num_rows: int
     num_nodes: int
+    plan: Optional[SplitPlan] = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def nnz(self) -> int:
@@ -247,8 +377,8 @@ def prepare_csr_parts(adj: CsrAdj, max_edges_per_part: int = 6 << 20) -> CsrPart
     * so the part count can differ from the TPU path's, which counts
       tile-padded chunks without the self-loop and hub edges.
 
-    The parts hold views of ``adj.col``/``adj.val`` and a small local
-    ``rowptr`` each; the split itself is computed on the host.
+    The parts hold views of ``adj.col``/``adj.val``, a small local
+    ``rowptr`` and a plan each; the split itself is computed on the host.
     """
     if max_edges_per_part < 1:
         raise ValueError(f"max_edges_per_part must be >= 1, got {max_edges_per_part}")
@@ -264,19 +394,20 @@ def prepare_csr_parts(adj: CsrAdj, max_edges_per_part: int = 6 << 20) -> CsrPart
     for e_lo, e_hi, r_lo, r_hi in zip(
         bounds[:-1].tolist(), bounds[1:].tolist(), first.tolist(), stop.tolist()
     ):
-        local = adj.rowptr[r_lo : r_hi + 1].clamp(e_lo, e_hi) - e_lo
+        local = (adj.rowptr[r_lo : r_hi + 1].clamp(e_lo, e_hi) - e_lo).contiguous()
         parts.append(
-            CsrPart(local.contiguous(), adj.col[e_lo:e_hi], adj.val[e_lo:e_hi], r_lo, r_hi - r_lo,
-                    adj.num_nodes)
+            CsrPart(local, adj.col[e_lo:e_hi], adj.val[e_lo:e_hi], r_lo, r_hi - r_lo,
+                    adj.num_nodes, _make_plan(local))
         )
     return CsrParts(tuple(parts), adj.num_nodes)
 
 
 def spmm_csr_acc_reference(part: CsrPart, x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of :func:`spmm_csr_acc`: the part's f32 sum
-    first (:func:`spmm_segment`'s order), then one add into the rows of the
-    ``acc`` window that the part touches; returns ``acc``."""
-    local = segment_sum_f32(_coo(part.rowptr, part.col, part.val, part.num_rows), x)
+    """Plain PyTorch twin of :func:`spmm_csr_acc`: the part's f32 sums
+    first (in the kernel's order, :func:`spmm_csr_reference`'s), then one
+    add into the rows of the ``acc`` window that the part touches; returns
+    ``acc``."""
+    local = _split_sum_f32(part.rowptr, part.col, part.val, part.num_rows, _plan(part), x)
     touched = torch.diff(part.rowptr) > 0
     window = acc.narrow(0, part.row_offset, part.num_rows)
     window[touched] += local[touched]
@@ -290,19 +421,21 @@ def spmm_csr_acc(part: CsrPart, x: torch.Tensor, acc: torch.Tensor) -> torch.Ten
     ``acc`` is an f32 ``[>= row_offset + num_rows, D]`` tensor for f32 and
     for bf16 ``x``.  Rows of the window whose range in the part is empty
     are not written, so they keep ``acc`` bit for bit, as the TPU kernel
-    leaves the tiles it never visits.  Where JAX returns a new array
-    aliased to its input, the port writes into ``acc`` itself.
+    leaves the tiles it never visits.  Every other row gets one add.
+    Where JAX returns a new array aliased to its input, the port writes
+    into ``acc`` itself.
 
-    On a CUDA tensor this launches the kernel on the current stream or
-    raises; parts launched in order on one stream may share a cut row.  On
-    a CPU tensor it runs :func:`spmm_csr_acc_reference`.
+    On a CUDA tensor this launches the kernel (and, when the part has a
+    long row, its fix-up) on the current stream or raises; parts launched
+    in order on one stream may share a cut row.  On a CPU tensor it runs
+    :func:`spmm_csr_acc_reference`.
     """
     if x.device.type == "cpu":
         return spmm_csr_acc_reference(part, x, acc)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_csr_acc runs on CUDA or CPU tensors, got {x.device}")
     _check_features(x, part.num_nodes)
-    _check_csr("CsrPart", x.device, part.rowptr, part.col, part.val, part.num_rows)
+    plan = _check_csr("CsrPart", x.device, part, part.num_rows)
     if acc.device != x.device:
         raise ValueError(f"acc is on {acc.device}, features on {x.device}")
     if acc.dtype != torch.float32:
@@ -315,9 +448,8 @@ def spmm_csr_acc(part: CsrPart, x: torch.Tensor, acc: torch.Tensor) -> torch.Ten
     if part.num_rows == 0 or x.shape[1] == 0:
         return acc
     _launch(
-        "acc_" + _DTYPE_KEY[x.dtype], x.device,
-        part.rowptr.data_ptr(), part.col.data_ptr(), part.val.data_ptr(),
-        x.data_ptr(), acc.data_ptr(), part.row_offset, part.num_rows, x.shape[1],
+        "acc_" + _DTYPE_KEY[x.dtype], plan, part.rowptr, part.col, part.val, x, acc,
+        part.row_offset, part.num_rows, x.shape[1],
     )
     return acc
 
@@ -345,9 +477,9 @@ def spmm_csr_streaming(parts: CsrParts, x: torch.Tensor) -> torch.Tensor:
     It needs more memory than :func:`spmm_csr`, not less: the one-shot
     kernel never forms the messages whose size made the TPU path split the
     graph, and this adds an f32 ``[N, D]`` accumulator and a cast.  It is
-    also slower on skewed graphs, since the hub rows of consecutive parts
-    run one after another instead of side by side.  The parts exist as the
-    counterpart of K3/K4, not for memory.
+    also a little slower, since the parts' launches run one after another
+    (``PERF.md``).  The parts exist as the counterpart of K3/K4, not for
+    memory.
     """
     return _streaming(parts, x, spmm_csr_acc)
 

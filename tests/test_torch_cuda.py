@@ -6,6 +6,8 @@ it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ import torch
 from sgl_tpu_torch.datasets import PlantedPartition, random_power_law_graph
 from sgl_tpu_torch.graph import symmetric_normalized_weights
 from sgl_tpu_torch.kernels import (
+    CsrAdj,
     gather_sum,
     gather_sum_reference,
     prepare_csr,
@@ -28,6 +31,7 @@ from sgl_tpu_torch.kernels import (
     spmm_csr_streaming_reference,
 )
 from sgl_tpu_torch.kernels.segment_reduce import INSTANTIATIONS
+from sgl_tpu_torch.kernels.spmm_csr import SPLIT_NNZ, _make_plan
 from sgl_tpu_torch.models import SGC
 from sgl_tpu_torch.tasks import NodeClassification
 
@@ -172,6 +176,119 @@ def test_spmm_csr_acc_rejects_bad_input(cuda):
         spmm_csr_acc(part, x.t().contiguous().t(), acc)
     with pytest.raises(ValueError):  # fewer rows than the graph's nodes
         spmm_csr_acc(part, x[:-1], acc)
+
+
+# -- long rows: the split plan, the fix-up and their fixed order ---------------
+
+KEYS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _star_csr(cuda, n=20_000, seed=0):
+    """A CSR built by hand (so its plan is made on first use) with rows of
+    10^5 and 10^6 nonzeros, rows at the split's edges (SPLIT_NNZ, + 1,
+    3·SPLIT_NNZ + 5, 4·SPLIT_NNZ), empty rows (every 9th) and short random
+    rows; weights 1/sqrt(row length) keep every row's sum of one size."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 30, n)
+    lengths[::9] = 0
+    lengths[[1, 2, 3, 4, 5, 7]] = [SPLIT_NNZ, SPLIT_NNZ + 1, 3 * SPLIT_NNZ + 5, 4 * SPLIT_NNZ,
+                                   100_000, 1_000_000]
+    rowptr = np.concatenate([[0], np.cumsum(lengths)])
+    e = int(rowptr[-1])
+    val = (rng.random(e) + 0.5) / np.sqrt(np.repeat(lengths, lengths))
+    return CsrAdj(
+        torch.as_tensor(rowptr, dtype=torch.int32, device=cuda),
+        torch.as_tensor(rng.integers(0, n, e), dtype=torch.int32, device=cuda),
+        torch.as_tensor(val, dtype=torch.float32, device=cuda),
+        n,
+    )
+
+
+def _features(cuda, n, d, dtype, seed=1):
+    return torch.randn(n, d, device=cuda, generator=torch.Generator(cuda).manual_seed(seed)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [128, 100, 37, 256])
+def test_spmm_csr_long_rows_match_plain(cuda, dtype, d):
+    adj = _star_csr(cuda)
+    x = _features(cuda, adj.num_nodes, d, dtype)
+    key = KEYS[dtype]
+    before, fixups = spmm_csr.launches[key], spmm_csr.fixup_launches[key]
+    got = spmm_csr(adj, x)
+    torch.cuda.synchronize()
+    assert spmm_csr.launches[key] == before + 1 and spmm_csr.fixup_launches[key] == fixups + 1
+    plan = adj.plan  # made by the first call
+    assert plan.split == SPLIT_NNZ and plan.num_long == 5 and plan.num_segments > 2000
+    want = spmm_csr_reference(adj, x)
+    assert got.dtype == dtype and got.shape == x.shape
+    # the twin sums each segment in edge order and the partials in segment
+    # order, as the kernel does
+    err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    assert err <= TOL[dtype], err
+    assert not got[torch.diff(adj.rowptr) == 0].any()  # empty rows written as zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [128, 100, 37, 256])
+def test_spmm_csr_acc_long_rows_match_plain(cuda, dtype, d):
+    adj = _star_csr(cuda)
+    parts = prepare_csr_parts(adj, -(-adj.nnz // 5))
+    x = _features(cuda, adj.num_nodes, d, dtype)
+    key = "acc_" + KEYS[dtype]
+    acc0 = torch.randn(adj.num_nodes, d, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    for part in parts:
+        before, fixups = spmm_csr.launches[key], spmm_csr.fixup_launches[key]
+        got = spmm_csr_acc(part, x, acc0.clone())
+        assert spmm_csr.launches[key] == before + 1
+        assert spmm_csr.fixup_launches[key] == fixups + (part.plan.num_long > 0)
+        want = spmm_csr_acc_reference(part, x, acc0.clone())
+        torch.cuda.synchronize()
+        touched = torch.zeros(adj.num_nodes, dtype=torch.bool, device=cuda)
+        touched[part.row_offset : part.row_offset + part.num_rows] = torch.diff(part.rowptr) > 0
+        assert torch.equal(got[~touched], acc0[~touched])
+        err = (got[touched] - want[touched]).abs().max().item() / want[touched].abs().max().item()
+        assert err <= 1e-5, (int(part.row_offset), err)
+    # the 10^6-nonzero row is cut between parts, and each share is long
+    assert sum(p.plan.num_long > 0 for p in parts) >= 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_spmm_csr_runs_give_the_same_bits(cuda, dtype):
+    adj = _star_csr(cuda)
+    parts = prepare_csr_parts(adj, -(-adj.nnz // 5))
+    x = _features(cuda, adj.num_nodes, 128, dtype)
+    # no atomics: the partials are added in a fixed order, parts in turn
+    assert torch.equal(spmm_csr(adj, x), spmm_csr(adj, x))
+    assert torch.equal(spmm_csr_streaming(parts, x), spmm_csr_streaming(parts, x))
+
+
+def test_spmm_csr_rejects_a_plan_of_another_csr(cuda):
+    adj = _star_csr(cuda)
+    other = prepare_csr(symmetric_normalized_weights(random_power_law_graph(20_000, 12, 8, seed=2),
+                                                     device=cuda))
+    x = _features(cuda, adj.num_nodes, 8, torch.float32)
+    with pytest.raises(ValueError, match="another row pointer"):
+        spmm_csr(dataclasses.replace(adj, plan=other.plan), x)
+    part, other_part = prepare_csr_parts(adj, 10**6).parts[0], prepare_csr_parts(other, 10**6).parts[0]
+    acc = torch.zeros(adj.num_nodes, 8, device=cuda)
+    with pytest.raises(ValueError, match="another row pointer"):
+        spmm_csr_acc(dataclasses.replace(part, plan=other_part.plan), x, acc)
+    assert not acc.any()
+
+
+def test_spmm_csr_rejects_a_plan_of_another_split_length(cuda):
+    # the kernel cuts rows of more than SPLIT_NNZ itself, so a plan cut at
+    # another length would leave rows to no task or to two
+    adj = _star_csr(cuda)
+    x = _features(cuda, adj.num_nodes, 8, torch.float32)
+    for split in (SPLIT_NNZ // 2, 2 * SPLIT_NNZ):
+        with pytest.raises(ValueError, match="segments of"):
+            spmm_csr(dataclasses.replace(adj, plan=_make_plan(adj.rowptr, split)), x)
+        part = prepare_csr_parts(adj, 10**6).parts[0]
+        with pytest.raises(ValueError, match="segments of"):
+            spmm_csr_acc(dataclasses.replace(part, plan=_make_plan(part.rowptr, split)), x,
+                         torch.zeros(adj.num_nodes, 8, device=cuda))
 
 
 # -- the segment reduce (dev/ kernels D2-D6) and the gather sum (D1) ----------

@@ -31,12 +31,16 @@ from sgl_tpu_torch.kernels import (
     spmm_csr,
     spmm_csr_acc,
     spmm_csr_acc_reference,
+    spmm_csr_reference,
     spmm_csr_streaming,
     spmm_csr_streaming_reference,
+    spmm_segment,
 )
+from sgl_tpu_torch.kernels.spmm_csr import SPLIT_NNZ
 from sgl_tpu_torch.models import GAMLP
 from tests.conftest import random_graph
 from tests.test_torch_graph import to_port_graph
+from tests.test_torch_spmm import _star_power_law, check_plan_covers_rows
 
 CPU = torch.device("cpu")
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -114,6 +118,24 @@ def test_prepare_csr_parts_cuts_rows_between_consecutive_parts():
             assert last_a == b.row_offset == int(glob[e])
             assert int(torch.diff(a.rowptr)[-1]) > 0 and int(torch.diff(b.rowptr)[0]) > 0
     assert cuts >= 5  # the hub row alone spans many parts
+
+
+@pytest.mark.parametrize("m", [100, 2 * SPLIT_NNZ + 3, 10**9])
+def test_prepare_csr_parts_gives_each_part_its_own_plan(m):
+    # the hub row (several SPLIT_NNZ) is cut between parts, and each share
+    # of it longer than SPLIT_NNZ is cut into segments of its own part
+    _, g = _star_power_law(n=3000)
+    adj = prepare_csr(symmetric_normalized_weights(g, device=CPU))
+    parts = prepare_csr_parts(adj, m)
+    for part in parts:
+        check_plan_covers_rows(part.rowptr, part.plan)
+    long_parts = sum(p.plan.num_long > 0 for p in parts)
+    if m == 10**9:
+        assert parts.parts[0].plan.num_segments == adj.plan.num_segments
+    elif m < SPLIT_NNZ:
+        assert long_parts == 0  # no share can pass SPLIT_NNZ
+    else:
+        assert long_parts >= 2, [p.plan.num_long for p in parts]
 
 
 @pytest.mark.parametrize("m", [0, -3])
@@ -213,6 +235,25 @@ def test_streaming_matches_pallas_streaming(m, branch, dtype):
         assert np.abs(got.float().numpy() - want).max() <= 2e-2 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_streaming_long_row_cut_matches_pallas_streaming(dtype):
+    # node 0's row (several SPLIT_NNZ) spans parts that each hold more than
+    # SPLIT_NNZ of it: each part cuts its share into segments and adds
+    # their sum once
+    jg, g = _star_power_law(n=3000, d=12, seed=6)
+    m = 4 * CHUNK
+    jx = jnp.asarray(jg.x, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    _, want = _jax_streaming(jg, jx, m)
+    parts = prepare_csr_parts(prepare_csr(symmetric_normalized_weights(g, device=CPU)), m)
+    cut_long = [p.plan.num_long > 0 for p in parts]
+    assert sum(cut_long) >= 2 and parts.parts[0].row_offset == parts.parts[1].row_offset == 0
+    got = spmm_csr_streaming(parts, torch.as_tensor(g.x).to(DTYPES[dtype]))
+    if dtype == "f32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    else:
+        assert np.abs(got.float().numpy() - want).max() <= 2e-2 * np.abs(want).max()
+
+
 # -- (e) streaming against the one-shot product ---------------------------------
 
 
@@ -225,10 +266,21 @@ def test_streaming_matches_one_shot(m, dtype):
     got = spmm_csr_streaming(parts, x)
     want = spmm_csr(adj, x)
     assert got.dtype == x.dtype
-    if m in (1, 10**9):
-        # one nonzero per part, or one part: every row sums in the one-shot
-        # order, so the results are the same bits
+    if m == 10**9:
+        # one part: its plan is the one-shot plan, so every row sums in the
+        # one-shot order and the results are the same bits
         assert torch.equal(got, want)
+    elif m == 1:
+        # one nonzero per part: streaming adds each row's terms one by one
+        # in edge order, the same bits as one sequential f32 sum per row;
+        # one-shot sums a row of more than SPLIT_NNZ (this graph's hub holds
+        # 581) as segments added in order, another f32 order of those terms
+        lengths = torch.diff(adj.rowptr.long())
+        assert int(lengths.max()) > SPLIT_NNZ
+        rows = torch.repeat_interleave(torch.arange(adj.num_nodes, dtype=torch.int32), lengths)
+        assert torch.equal(got, spmm_segment(SparseAdj(adj.col, rows, adj.val, adj.num_nodes, True), x))
+        assert torch.equal(want, spmm_csr_reference(adj, x))
+        assert _rel(got.float().numpy(), want.float().numpy()) <= (1e-5 if dtype == "f32" else 1e-2)
     else:
         # a row cut between parts sums each share apart, then adds the
         # shares (1.1e-6 of max|y| on this graph's hub row at m = 37, the
