@@ -8,7 +8,7 @@ Phases; any failure raises and the script exits non-zero:
 1. print the card's name and power limit (``nvidia-smi``); build every CUDA
    kernel of the package from source with ``nvcc`` and print the seconds;
    beside it, a second compile with ``-Xptxas -v`` prints each kernel
-   instantiation's registers and spills;
+   instantiation's registers, static shared memory and spills;
 2. hold the one-shot kernels against their plain PyTorch twin at the SpMM
    bench shape (``random_power_law_graph(200_000, 25, 128, seed=0)``: ~5.2M
    nonzeros with self-loops), check that two runs give the same bits, and
@@ -47,10 +47,16 @@ Phases; any failure raises and the script exits non-zero:
    then each of
    the six segment-reduce instantiations against its twin on its
    variant's messages (D2 into a random accumulator at a row offset,
-   storage kept, untouched rows bit-exact), timed beside its bound, one
-   message array at a time;
+   storage kept, untouched rows bit-exact) and against a float64 sum of the
+   same messages (``F64_TOL``), two runs bit-equal, with its tiles, cut
+   rows, workspace and copy path, timed beside its bound and its hub row
+   alone (every other row empty), and beside one PyTorch call of the same
+   function where there is one (``torch.segment_reduce`` for ``f32``,
+   ``torch.sparse.mm`` for ``f32_w2``), with the device time of pass 1 and
+   the fix-up apart (``torch.profiler``), one message array at a time;
 7. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
-   (for K1–K4 also the fix-up's), errors and times beside its bound;
+   (for K1–K4 and D2–D6 also the fix-up's), errors and times beside its
+   bound;
 8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
@@ -87,7 +93,9 @@ TOL = {"f32": 1e-5, "bf16": 1e-2}
 # streaming against one-shot at products scale (``split_order_check``)
 ORDER_TOL = {"f32": 1e-4, "bf16": 1e-2}
 # the f32 kernel against a float64 sum at the main-path shape, whose hub row
-# holds 196,747 nonzeros: no sequential f32 sum spans more than a segment
+# holds 196,747 nonzeros: no sequential f32 sum spans more than a segment;
+# phase 6 holds every segment-reduce form to it at the bench shape (a hub
+# row of 484,644 messages), whose sums span at most a tile of messages
 F64_TOL = 1e-5
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # the SpMM bench graph of bench.py:115, and the part size of its streaming
@@ -352,22 +360,26 @@ def reference_check_phase(dev):
 
 
 def ptxas_summary(log_text: str) -> list:
-    """One line per kernel entry of ``ptxas -v``'s log: its template
-    arguments (the mangled name's: ``13__nv_bfloat16fLi4ELb1E`` is bf16
-    in, f32 out, VEC 4, accumulate; ``S1_`` repeats the first type),
-    registers and spill bytes."""
+    """One line per kernel entry of ``ptxas -v``'s log: its name and
+    template arguments (the mangled name's: ``13__nv_bfloat16fLi4ELb1E`` is
+    bf16 in, f32 out, VEC 4, accumulate; ``S1_`` repeats the first type),
+    registers, static shared memory (the dynamic ring is sized at launch)
+    and spill bytes."""
     lines, name, spill = [], None, ""
     for line in log_text.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            args = re.search(r"kernelI(\w+?)EEv", entry.group(1))
-            name = args.group(1) if args else entry.group(1)
+            # the name follows its length in the mangled name
+            args = re.search(r"(?<=\d)([a-z_]+_kernel)I(\w+?)EEv", entry.group(1))
+            name = f"{args.group(1)}<{args.group(2)}>" if args else entry.group(1)
         elif name and "spill stores" in line:
             spill = re.sub(r".*?(\d+) bytes spill stores, (\d+) bytes spill loads.*",
                            r"spill \1 B stored / \2 B loaded", line.strip())
         elif name and "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            lines.append(f"{name}: {regs} registers, {spill}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{name}: {regs} registers, {smem.group(1) if smem else 0} B static shared "
+                         f"memory, {spill}")
             name, spill = None, ""
     return lines
 
@@ -611,7 +623,7 @@ def products_phase(dev):
 def reset_dev_launches() -> None:
     from sgl_tpu_torch.kernels import gather_sum, segment_reduce
 
-    for counts in (segment_reduce.launches, gather_sum.launches):
+    for counts in (segment_reduce.launches, segment_reduce.fixup_launches, gather_sum.launches):
         for k in counts:
             counts[k] = 0
 
@@ -630,16 +642,64 @@ def segment_bound(m, kw, n: int, d: int, accumulate: bool) -> dict:
                 nbytes=nbytes)
 
 
-def dev_library_time(m, rowptr, want) -> tuple:
-    """``torch.segment_reduce`` (sum over offsets) on the same f32 messages,
-    the yardstick only: (median ms or None, a note with its error)."""
-    offsets = rowptr.long()
+def dev_library_time(key, m, rowptr, kw, want) -> tuple:
+    """One PyTorch call that computes form ``key`` on the same messages,
+    the yardstick only: (median ms or None, a note with its error).
+    ``f32``: ``torch.segment_reduce`` (sum over offsets); ``f32_w2``:
+    ``torch.sparse.mm`` of the ``[N, E]`` CSR whose row r holds ``wh + wl``
+    (exact in f32) at columns ``rowptr[r]`` .. ``rowptr[r+1]``, built
+    outside the timed call, with ``m``.  The bf16 and two-half forms have
+    none: no one call sums bf16 into f32 or adds two halves."""
+    if key == "f32":
+        name, offsets = "torch.segment_reduce", rowptr.long()
+        call = lambda: torch.segment_reduce(m, "sum", offsets=offsets, axis=0)  # noqa: E731
+    elif key == "f32_w2":
+        e = m.shape[0]
+        a = torch.sparse_csr_tensor(rowptr, torch.arange(e, dtype=torch.int32, device=m.device),
+                                    kw["wh"].float() + kw["wl"].float(), size=(rowptr.shape[0] - 1, e),
+                                    check_invariants=False)
+        name = "torch.sparse.mm"
+        call = lambda: torch.sparse.mm(a, m)  # noqa: E731
+    else:
+        return None, "no one PyTorch call computes this form"
     try:
-        lib_rel = rel_err(torch.segment_reduce(m, "sum", offsets=offsets, axis=0), want)[1]
-        ms = time_ms(lambda: torch.segment_reduce(m, "sum", offsets=offsets, axis=0), warmup=1, iters=5)
-        return ms, f"torch.segment_reduce {ms:.4f} ms (max rel err {lib_rel:.2e})"
+        lib_rel = rel_err(call(), want)[1]
+        ms = time_ms(call, warmup=1, iters=5)
+        return ms, f"{name} {ms:.4f} ms (max rel err {lib_rel:.2e})"
     except (RuntimeError, NotImplementedError) as exc:  # the yardstick only
-        return None, f"torch.segment_reduce failed: {type(exc).__name__}: {exc}"
+        return None, f"{name} failed: {type(exc).__name__}: {exc}"
+
+
+def device_split(fn, iters: int = 5) -> dict:
+    """Device time of one ``fn()`` by segment-reduce kernel, in ms, from
+    ``torch.profiler`` (CUPTI) over ``iters`` calls: pass 1 apart from the
+    fix-up, without the host's gaps between calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        name = re.search(r"segment_reduce\w*_kernel", ev.key)
+        if name and ev.device_time_total > 0:
+            split[name.group(0)] = round(split.get(name.group(0), 0.0) + ev.device_time_total / iters / 1e3, 4)
+    return split
+
+
+def f64_segment_sum(rowptr, m, kw):
+    """The segment sum of the form's f32 messages in float64: what the f32
+    sums lose, in any order."""
+    from sgl_tpu_torch.kernels.segment_reduce import messages_f32
+
+    e = int(rowptr[-1])
+    wh, wl = (None if kw.get(k) is None else kw[k][:e] for k in ("wh", "wl"))
+    msgs = messages_f32(m[:e], kw.get("halves", 1), wh, wl).double()
+    rows = torch.repeat_interleave(torch.arange(rowptr.shape[0] - 1, device=m.device),
+                                   torch.diff(rowptr.long()), output_size=e)
+    y = torch.zeros((rowptr.shape[0] - 1, msgs.shape[1]), dtype=torch.float64, device=m.device)
+    return y.index_add_(0, rows, msgs)
 
 
 def dev_phase(dev):
@@ -649,7 +709,7 @@ def dev_phase(dev):
     messages, timed beside its bound."""
     from sgl_tpu_torch.dev import exp_acc_alias, exp_gather_dma, exp_spmm
     from sgl_tpu_torch.kernels import gather_sum, segment_reduce, segment_reduce_reference
-    from sgl_tpu_torch.kernels.segment_reduce import INSTANTIATIONS
+    from sgl_tpu_torch.kernels.segment_reduce import INSTANTIATIONS, TILE_MESSAGES, tiling
 
     t = time.perf_counter()
     g, csr = exp_spmm.make_graph(**DEV_GRAPH, device=dev)
@@ -672,9 +732,16 @@ def dev_phase(dev):
     torch.cuda.synchronize()
     launches = dict(segment_reduce.launches)
     launches["gather_sum"] = gather_sum.launches["f32"]
+    fixups = dict(segment_reduce.fixup_launches)
     check(all(v > 0 for v in launches.values()), f"[6] a kernel was not launched: {launches}")
+    # every exp_spmm call at the bench shape has a cut row (D2's probe has
+    # one tile: no fix-up)
+    check(all(fixups[k] == launches[k] for k in DEV_VARIANT if k != "bf16_acc"),
+          f"[6] fix-ups {fixups} for launches {launches}")
+    launches.update({"fixup_" + k: v for k, v in fixups.items()})
     errs = ", ".join(f"{k} {v:.3e}" for k, v in harness_errs.items())
-    log(f"[6] harness paths: launches {launches}; exp_spmm --check errors: {errs}; acc_alias {alias}")
+    log(f"[6] harness paths: launches {launches}; exp_spmm --check errors (against a float64 sum): "
+        f"{errs}; acc_alias {alias}")
 
     results = {}
     for key, variant in DEV_VARIANT.items():
@@ -695,7 +762,11 @@ def dev_phase(dev):
             touched[D2_ROW_OFFSET:D2_ROW_OFFSET + n] = torch.diff(csr.rowptr) > 0
             check(torch.equal(got[~touched], acc0[~touched]), f"[6] {key}: untouched rows changed")
             note = f"storage kept, {int((~touched).sum())} untouched rows bit-exact; "
-            got, want = got[touched], want[touched]
+            check(torch.equal(segment_reduce(csr.rowptr, m, out=acc0.clone(), **kw), got),
+                  f"[6] {key}: two runs differ")
+            f64 = acc0.double()
+            f64[D2_ROW_OFFSET:D2_ROW_OFFSET + n] += f64_segment_sum(csr.rowptr, m, kw)
+            got, want, f64 = got[touched], want[touched], f64[touched]
             got_out = acc
             run = lambda: segment_reduce(csr.rowptr, m, out=acc, **kw)  # noqa: E731
             twin = lambda: segment_reduce_reference(csr.rowptr, m, out=acc, **kw)  # noqa: E731
@@ -704,27 +775,37 @@ def dev_phase(dev):
             want = segment_reduce_reference(csr.rowptr, m, **kw)
             torch.cuda.synchronize()
             check(got.shape == (n, d) and got.dtype == torch.float32, f"[6] {key}: {tuple(got.shape)}")
+            check(torch.equal(segment_reduce(csr.rowptr, m, **kw), got), f"[6] {key}: two runs differ")
+            f64 = f64_segment_sum(csr.rowptr, m, kw)
             note, got_out = "", None
             run = lambda: segment_reduce(csr.rowptr, m, **kw)  # noqa: E731
             twin = lambda: segment_reduce_reference(csr.rowptr, m, **kw)  # noqa: E731
         check(torch.isfinite(got).all().item(), f"[6] {key}: non-finite output")
         abs_err, rel = rel_err(got, want)
         check(rel <= DEV_TOL, f"[6] segment_reduce {key} disagrees with its twin: {rel:.3e}")
+        rel64 = rel_err(got, f64)[1]
+        check(rel64 <= F64_TOL, f"[6] segment_reduce {key} vs a float64 sum: {rel64:.3e} (limit {F64_TOL:.0e})")
+        del f64
         ms = time_ms(run, warmup=2, iters=10)
         plain_ms = time_ms(twin, warmup=1, iters=3)
         hub_kw = {k: (v[beg:end] if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
         hub_ms = time_ms(lambda: segment_reduce(hub_rowptr, m[beg:end], out=got_out, **hub_kw),
                          warmup=1, iters=5)
-        library_ms, lib_note = None, "no one PyTorch call computes this form"
-        if key == "f32":
-            library_ms, lib_note = dev_library_time(m, csr.rowptr, want)
+        split = device_split(run)
+        library_ms, lib_note = dev_library_time(key, m, csr.rowptr, kw, want)
         b = segment_bound(m, kw, n, d, accumulate)
-        results[key] = dict(abs_err=abs_err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        results[key] = dict(abs_err=abs_err, rel_err=rel, rel_err_f64=rel64, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                            hub_share=hub_ms / ms)
+        cut = tiling(csr.rowptr, m, kw.get("halves", 1))
         log(f"[6] segment_reduce {key} ({INSTANTIATIONS[key][4]}; {variant} messages "
-            f"{tuple(m.shape)} {m.dtype}): {note}max abs err {abs_err:.3e}, max rel err {rel:.3e} "
-            f"(limit {DEV_TOL:.0e}); kernel {ms:.4f} ms (the hub row alone {hub_ms:.4f} ms, "
-            f"{hub_ms * 1e6 / (end - beg):.1f} ns a message row); plain twin {plain_ms:.4f} ms; bound "
+            f"{tuple(m.shape)} {m.dtype}): {cut['tiles']} tiles of {TILE_MESSAGES}, {cut['cut_rows']} cut "
+            f"rows, workspace {cut['workspace_bytes'] / 1e6:.3f} MB, {cut['path']} copies; {note}max abs err "
+            f"{abs_err:.3e}, max rel err {rel:.3e} (limit {DEV_TOL:.0e}; vs a float64 sum {rel64:.3e}, limit "
+            f"{F64_TOL:.0e}); two runs bit-equal; kernel {ms:.4f} ms, {b['bound_ms'] / ms:.1%} of the bound "
+            f"(the hub row alone, every other row empty, {hub_ms:.4f} ms, {hub_ms / ms:.1%} of the kernel, "
+            f"{hub_ms * 1e6 / (end - beg):.3f} ns a message row); device time a call (torch.profiler) "
+            f"{split}; plain twin {plain_ms:.4f} ms; bound "
             f"{b['bound_ms']:.4f} ms ({b['nbytes'] / 1e9:.4f} GB at 3.35 TB/s, {b['bound_by']}); "
             f"library: {lib_note}")
         del m, got, want, run, twin
@@ -838,6 +919,7 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
             "name": key if gather else f"segment_reduce_{key}", "route": "cuda",
             "source": "sgl_tpu_torch/kernels/csrc/gather_sum.cu" if gather else SEGMENT_SOURCE,
             "replaces": DEV_REPLACES[key], "launches": dev_launches[key],
+            "fixup_launches": dev_launches.get("fixup_" + key),
             "max_abs_err": r["abs_err"], "max_rel_err": r["rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

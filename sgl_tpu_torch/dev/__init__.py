@@ -7,7 +7,9 @@
 * :mod:`sgl_tpu_torch.dev.exp_gather_dma` — D1's gather-rate probe;
 * :mod:`sgl_tpu_torch.dev.exp_acc_alias` — D2's accumulate-in-place probe;
 * :mod:`sgl_tpu_torch.dev.tune_spmm_csr` — the CSR SpMM kernel's design
-  constants, each timed against other values (the card only).
+  constants, each timed against other values (the card only);
+* :mod:`sgl_tpu_torch.dev.tune_segment_reduce` — the same for the
+  segment-reduce kernel's.
 
 Each runs on the GPU unless ``--device cpu`` is given, and imports nothing
 of JAX, ``sgl_tpu`` or ``dev/``.  Times are CUDA events on the card and the

@@ -56,7 +56,7 @@ from sgl_tpu_torch.datasets import random_power_law_graph
 from sgl_tpu_torch.dev import device_label, rel_err, time_ms
 from sgl_tpu_torch.device import resolve_device
 from sgl_tpu_torch.graph import symmetric_normalized_weights
-from sgl_tpu_torch.kernels import CsrAdj, SparseAdj, prepare_csr, segment_reduce, spmm_csr, spmm_segment
+from sgl_tpu_torch.kernels import CsrAdj, prepare_csr, segment_reduce, spmm_csr
 
 #: the SpMM bench graph (``bench.py:115``): nodes, average degree, features
 BENCH = (200_000, 25, 128)
@@ -64,14 +64,13 @@ VARIANTS = ("factored", "factored_f32", "packed", "a", "a2", "b")
 #: the TPU kernel each variant's segment sum replaces
 TPU_KERNEL = {"factored": "D3", "factored_f32": "D4", "packed": "D5", "a": "D6 A",
               "a2": "D6 A'", "b": "D6 B"}
-#: max|y - y_ref| / max|y_ref| against :func:`sequential_reference` in f32.
-#: ``a2``: the reference's own messages, summed in its order; the other
-#: f32 forms round each message differently (``factored_f32`` scales by
-#: ``g`` before the sum and ``f`` after it; ``a`` multiplies by ``wh + wl``,
-#: ~2^-17 from ``w``; the halves carry ~2^-17 each), and over a hub row of
-#: ~500k terms two f32 sums of such messages drift by about what one long
-#: f32 sum loses (1.1e-5 of max|y| from a float64 sum on the bench graph);
-#: ``b`` has bf16 features and weights, held to the bf16 bar of
+#: max|y - y_ref| / max|y_ref| against :func:`sequential_reference`, a
+#: float64 sum.  ``a2``: the f32 messages ``w · x`` summed in f32, each sum
+#: over at most one tile of the kernel's messages; the other f32 forms
+#: also round each message differently (``factored_f32`` scales by ``g``
+#: before the sum and ``f`` after it; ``a`` multiplies by ``wh + wl``,
+#: ~2^-17 from ``w``; the halves carry ~2^-17 each); ``b`` has bf16
+#: features and weights, held to the bf16 bar of
 #: ``__graft_entry__.dryrun_multichip``
 LIMITS = {"factored": 1e-4, "factored_f32": 1e-4, "packed": 1e-4, "a": 1e-4, "a2": 1e-5,
           "b": 3e-2}
@@ -182,13 +181,14 @@ def spmm_b(ops: Operands, x: torch.Tensor) -> torch.Tensor:
 
 
 def sequential_reference(csr: CsrAdj, x: torch.Tensor) -> torch.Tensor:
-    """``csr @ x`` with each row summed in f32 in edge order, in one
-    sequence, as the segment-reduce kernels sum (``spmm_csr_reference``
-    follows the CSR kernel instead, which cuts long rows into segments)."""
+    """``csr @ x`` summed in float64 and cast to f32 once: the product
+    every variant is held to, independent of any f32 order of the sum."""
     rows = torch.repeat_interleave(
-        torch.arange(csr.num_nodes, dtype=torch.int32, device=csr.device), torch.diff(csr.rowptr.long())
+        torch.arange(csr.num_nodes, device=csr.device), torch.diff(csr.rowptr.long())
     )
-    return spmm_segment(SparseAdj(csr.col, rows, csr.val, csr.num_nodes, True), x)
+    y = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    y.index_add_(0, rows, x.double().index_select(0, csr.col.long()) * csr.val.double()[:, None])
+    return y.float()
 
 
 def check(ops: Operands, x: torch.Tensor, variants=VARIANTS) -> dict:

@@ -23,6 +23,10 @@ as it stands first and again last:
   hop streaming in its 10 parts (K3) and one-shot, each held against the
   source's own result within the f32 limit (another order of one sum).
 
+Its copy-build helpers (:func:`source_constants`, :func:`variant_source`,
+:func:`build_variants`) take any source and its constants;
+``tune_segment_reduce`` times ``segment_reduce.cu``'s with them.
+
 It needs the card, and changes nothing in the package.
 """
 
@@ -63,11 +67,12 @@ def _pattern(name: str) -> re.Pattern:
     return re.compile(rf"(constexpr (?:int|int64_t) {name} = )(\d+);")
 
 
-def source_constants(text: str) -> dict:
-    """``{constant: value}`` of :data:`CONSTANTS` in the source ``text``;
-    raises unless each is defined exactly once."""
+def source_constants(text: str, constants=CONSTANTS) -> dict:
+    """``{constant: value}`` of ``constants`` (by default
+    :data:`CONSTANTS`) in the source ``text``; raises unless each is
+    defined exactly once."""
     values = {}
-    for name in CONSTANTS:
+    for name in constants:
         found = _pattern(name).findall(text)
         if len(found) != 1:
             raise ValueError(f"{name} is defined {len(found)} times in the source, expected once")
@@ -75,25 +80,29 @@ def source_constants(text: str) -> dict:
     return values
 
 
-def variant_source(text: str, name: str, value: int) -> str:
-    """The source ``text`` with constant ``name`` set to ``value``."""
-    if name not in CONSTANTS:
-        raise ValueError(f"{name} is not one of {CONSTANTS}")
-    source_constants(text)  # each defined once
+def variant_source(text: str, name: str, value: int, constants=CONSTANTS) -> str:
+    """The source ``text`` with constant ``name``, one of ``constants``,
+    set to ``value``."""
+    if name not in constants:
+        raise ValueError(f"{name} is not one of {constants}")
+    source_constants(text, constants)  # each defined once
     return _pattern(name).sub(rf"\g<1>{value};", text)
 
 
-def build_variants(variants, out_dir: Path) -> dict:
-    """Build the source as it stands (key None) and each ``(name, value)``
-    variant into ``out_dir``, one ``nvcc`` each, all started together;
-    returns ``{key: library}`` with the entry points' signatures set."""
-    text = SOURCE.read_text()
+def build_variants(variants, out_dir: Path, source: Path = SOURCE, constants=CONSTANTS,
+                   entries=None) -> dict:
+    """Build ``source`` as it stands (key None) and each ``(name, value)``
+    variant of its ``constants`` into ``out_dir``, one ``nvcc`` each, all
+    started together; returns ``{key: library}`` with the signatures of
+    ``entries`` set (by default ``spmm_csr.cu``'s)."""
+    text = source.read_text()
+    entries = signatures() if entries is None else entries
     jobs = {}
     try:
         for key in (None, *variants):
             tag = "as_is" if key is None else f"{key[0]}_{key[1]}"
-            src, lib = out_dir / f"spmm_csr_{tag}.cu", out_dir / f"spmm_csr_{tag}.so"
-            src.write_text(text if key is None else variant_source(text, *key))
+            src, lib = out_dir / f"{source.stem}_{tag}.cu", out_dir / f"{source.stem}_{tag}.so"
+            src.write_text(text if key is None else variant_source(text, *key, constants))
             cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
             jobs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                          lib)
@@ -102,7 +111,7 @@ def build_variants(variants, out_dir: Path) -> dict:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for the variant {key}:\n{log}")
-            libs[key] = _build.bind(ctypes.CDLL(str(lib)), signatures())
+            libs[key] = _build.bind(ctypes.CDLL(str(lib)), entries)
         return libs
     finally:  # leave no compiler running behind a failure
         for proc, _ in jobs.values():

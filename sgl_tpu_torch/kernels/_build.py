@@ -132,6 +132,11 @@ def call(lib: ctypes.CDLL, fn: str, device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn)(*args, stream)
+    raise_on_error(lib, fn, err)
+
+
+def raise_on_error(lib: ctypes.CDLL, fn: str, err: int) -> None:
+    """Raise if entry point ``fn`` of ``lib`` returned a CUDA error."""
     if err != 0:
         msg = lib.sgl_cuda_error_string(err).decode()
         raise RuntimeError(f"{fn} kernel launch failed: {msg} (cudaError {err})")

@@ -20,14 +20,16 @@ ptxas info    : Function properties for helper
 ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__8bed0cad_11_spmm_csr_cu_b44ff5c715spmm_csr_kernelIffLi4ELb0EEEvPKiS3_PKfPKT_PT0_ll' for 'sm_90a'
 ptxas info    : Function properties for _ZN44_GLOBAL__N__8bed0cad_11_spmm_csr_cu_b44ff5c715spmm_csr_kernelIffLi4ELb0EEEvPKiS3_PKfPKT_PT0_ll
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 48 registers, used 0 barriers
+ptxas info    : Used 48 registers, used 1 barriers, 32768 bytes smem, 424 bytes cmem[0]
 """
 
 
 def test_ptxas_summary_reads_registers_and_spills_per_entry():
     assert ptxas_summary(PTXAS_LOG) == [
-        "13__nv_bfloat16fLi4ELb1E: 32 registers, spill 36 B stored / 40 B loaded",
-        "ffLi4ELb0E: 48 registers, spill 0 B stored / 0 B loaded",
+        "spmm_csr_kernel<13__nv_bfloat16fLi4ELb1E>: 32 registers, 0 B static shared memory, "
+        "spill 36 B stored / 40 B loaded",
+        "spmm_csr_kernel<ffLi4ELb0E>: 48 registers, 32768 B static shared memory, "
+        "spill 0 B stored / 0 B loaded",
     ]
     assert ptxas_summary("nvcc: nothing compiled\n") == []
 

@@ -30,7 +30,7 @@ from sgl_tpu_torch.kernels import (
     spmm_csr_streaming,
     spmm_csr_streaming_reference,
 )
-from sgl_tpu_torch.kernels.segment_reduce import INSTANTIATIONS
+from sgl_tpu_torch.kernels.segment_reduce import COLUMN_WINDOW, INSTANTIATIONS, TILE_MESSAGES, tiling
 from sgl_tpu_torch.kernels.spmm_csr import SPLIT_NNZ, _make_plan
 from sgl_tpu_torch.models import SGC
 from sgl_tpu_torch.tasks import NodeClassification
@@ -296,13 +296,20 @@ def test_spmm_csr_rejects_a_plan_of_another_split_length(cuda):
 
 def _segment_inputs(cuda, key, d, n=3000, seed=0):
     """Dst-ordered random messages for instantiation ``key`` on the card: a
-    hub row of 20,000 messages, empty rows (every 7th), bf16 weight halves
-    where the form takes them."""
+    hub row of 25,000 messages (49 tiles), rows of T-1, T, T+1 and 3T+5
+    messages (T = TILE_MESSAGES), empty rows (every 7th, two at tile edges
+    and the last three), bf16 weight halves where the form takes them."""
     dtype, halves, n_w, _, _ = INSTANTIATIONS[key]
     rng = np.random.default_rng(seed)
+    t = TILE_MESSAGES
     lengths = rng.integers(1, 12, n)
-    lengths[5] = 20_000
+    lengths[5] = 25_000
     lengths[::7] = 0
+    lengths[10:14] = [t - 1, t, t + 1, 3 * t + 5]
+    for row in (n // 3, 2 * n // 3):  # an empty row whose offset is a multiple of T
+        lengths[row - 1] = t - lengths[:row - 1].sum() % t
+        lengths[row] = 0
+    lengths[-3:] = 0
     rowptr = torch.as_tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int32, device=cuda)
     e = int(rowptr[-1])
     gen = torch.Generator(cuda).manual_seed(seed)
@@ -313,38 +320,142 @@ def _segment_inputs(cuda, key, d, n=3000, seed=0):
     return rowptr, m, dict(halves=halves, wh=wh if n_w >= 1 else None, wl=wl if n_w == 2 else None)
 
 
-@pytest.mark.parametrize("key", sorted(INSTANTIATIONS))
-# full-warp packets, packets that leave lanes idle, scalar, and two column
-# passes (D = 256: [hi | lo] rows of 1 KB for the halves forms)
-@pytest.mark.parametrize("d", [128, 100, 37, 256])
-def test_segment_reduce_kernel_matches_plain(cuda, key, d):
-    rowptr, m, kw = _segment_inputs(cuda, key, d)
+def _segment_run(rowptr, m, kw, key, d):
+    """The kernel and its twin on the same inputs: ``(got, want, touched)``,
+    the accumulating form into a random window at a row offset (its
+    untouched rows, and the rows outside the window, checked bit for bit)."""
     n = rowptr.shape[0] - 1
-    before = segment_reduce.launches[key]
     if INSTANTIATIONS[key][3]:
         off = 7
-        acc0 = torch.randn(off + n + 5, d, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+        acc0 = torch.randn(off + n + 5, d, device=m.device, generator=torch.Generator(m.device).manual_seed(1))
         acc = acc0.clone()
         got = segment_reduce(rowptr, m, out=acc, row_offset=off, **kw)
         want = segment_reduce_reference(rowptr, m, out=acc0.clone(), row_offset=off, **kw)
         torch.cuda.synchronize()
         assert got is acc and got.data_ptr() == acc.data_ptr()
-        touched = torch.zeros(acc.shape[0], dtype=torch.bool, device=cuda)
+        touched = torch.zeros(acc.shape[0], dtype=torch.bool, device=m.device)
         touched[off:off + n] = torch.diff(rowptr) > 0
         # outside the window and the window's empty rows: bit for bit
         assert torch.equal(got[~touched], acc0[~touched])
-        got, want = got[touched], want[touched]
-    else:
-        got = segment_reduce(rowptr, m, **kw)
-        want = segment_reduce_reference(rowptr, m, **kw)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.float32 and got.shape == (n, d)
-        assert not got[torch.diff(rowptr) == 0].any()  # empty rows written as zeros
-    assert segment_reduce.launches[key] == before + 1
+        return got, want, touched
+    got = segment_reduce(rowptr, m, **kw)
+    want = segment_reduce_reference(rowptr, m, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    assert not got[torch.diff(rowptr) == 0].any()  # empty rows written as zeros
+    return got, want, torch.diff(rowptr) > 0
+
+
+def _rel_to_max(got, want) -> float:
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+@pytest.mark.parametrize("key", sorted(INSTANTIATIONS))
+# 16-byte rows streamed by bulk copy (D = 128, 256, and 100 but for bf16
+# rows of 200 bytes), the others by cp.async (D = 37, bf16 D = 100); D =
+# 1100: two column windows, each row's window by cp.async, a launch each
+@pytest.mark.parametrize("d", [128, 100, 37, 256, 1100])
+def test_segment_reduce_kernel_matches_plain(cuda, key, d):
+    rowptr, m, kw = _segment_inputs(cuda, key, d)
+    before = segment_reduce.launches[key], segment_reduce.fixup_launches[key]
+    got, want, touched = _segment_run(rowptr, m, kw, key, d)
+    windows = 2 if d > COLUMN_WINDOW else 1
+    assert segment_reduce.launches[key] == before[0] + windows
+    assert segment_reduce.fixup_launches[key] == before[1] + windows
+    path = tiling(rowptr, m, kw["halves"])["path"]
+    assert path == ("windows" if d > COLUMN_WINDOW
+                    else "bulk" if m.shape[1] * m.element_size() % 16 == 0 else "cp.async")
     # the same messages summed in the same order: only fused multiply-adds
     # inside a message differ
-    err = (got - want).abs().max().item() / want.abs().max().item()
+    err = _rel_to_max(got[touched], want[touched])
     assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("key", sorted(INSTANTIATIONS))
+def test_segment_reduce_walks_long_runs_of_empty_rows(cuda, key):
+    # runs of 700 empty rows inside tiles (past the T + 8 row pointers a
+    # block keeps, so the kernel searches rowptr for the next row), a run
+    # where a tile starts, and 5,000 trailing empty rows
+    dtype, halves, n_w, _, _ = INSTANTIATIONS[key]
+    t = TILE_MESSAGES
+    lengths = []
+    for i in range(12):
+        lengths += [3, 0] + [0] * 700 + [t // 2 + 7 * i, 1] + [0] * (i % 3)
+    lengths += [t - sum(lengths) % t] + [0] * 700 + [5] + [0] * 5000
+    rng = np.random.default_rng(7)
+    rowptr = torch.as_tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int32, device=cuda)
+    e = int(rowptr[-1])
+    gen = torch.Generator(cuda).manual_seed(3)
+    m = torch.randn(e, halves * 64, device=cuda, generator=gen).to(dtype)
+    w = torch.as_tensor(rng.random(e).astype(np.float32) + 0.5, device=cuda)
+    wh = w.to(torch.bfloat16)
+    kw = dict(halves=halves, wh=wh if n_w >= 1 else None,
+              wl=(w - wh.float()).to(torch.bfloat16) if n_w == 2 else None)
+    starts = rowptr[:-1].cpu().numpy()
+    assert ((np.diff(rowptr.cpu().numpy()) == 0) & (starts % t == 0) & (starts > 0)).any()
+    got, want, touched = _segment_run(rowptr, m, kw, key, 64)
+    assert _rel_to_max(got[touched], want[touched]) <= 1e-5
+
+
+@pytest.mark.parametrize("key", sorted(INSTANTIATIONS))
+def test_segment_reduce_misaligned_messages_give_the_same_bits(cuda, key):
+    # a slice one element into a buffer: m is no longer 16-byte aligned, so
+    # the kernel streams it with cp.async; the order of the sum is the same
+    rowptr, m, kw = _segment_inputs(cuda, key, 128)
+    buf = torch.empty(m.numel() + 1, dtype=m.dtype, device=cuda)
+    shifted = buf[1:].view(m.shape)
+    shifted.copy_(m)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    assert tiling(rowptr, shifted, kw["halves"])["path"] == "cp.async"
+    assert tiling(rowptr, m, kw["halves"])["path"] == "bulk"
+    aligned, _, _ = _segment_run(rowptr, m, kw, key, 128)
+    got, want, touched = _segment_run(rowptr, shifted, kw, key, 128)
+    assert torch.equal(got, aligned)
+    assert _rel_to_max(got[touched], want[touched]) <= 1e-5
+
+
+@pytest.mark.parametrize("key", sorted(INSTANTIATIONS))
+def test_segment_reduce_is_deterministic_and_counts_its_fixup(cuda, key):
+    rowptr, m, kw = _segment_inputs(cuda, key, 100)
+    # weights one element into a buffer: not 16-byte aligned, so loaded
+    # without the bulk copy
+    for name in ("wh", "wl"):
+        if kw[name] is not None:
+            buf = torch.empty(kw[name].numel() + 1, dtype=torch.bfloat16, device=cuda)
+            buf[1:] = kw[name]
+            kw[name] = buf[1:]
+    before = dict(segment_reduce.launches), dict(segment_reduce.fixup_launches)
+    first, _, _ = _segment_run(rowptr, m, kw, key, 100)
+    second, _, _ = _segment_run(rowptr, m, kw, key, 100)
+    assert torch.equal(first, second)  # no atomics: the same bits every run
+    assert segment_reduce.launches[key] == before[0][key] + 2
+    assert segment_reduce.fixup_launches[key] == before[1][key] + 2
+    # one tile: no cut row, no fix-up
+    small = torch.tensor([0, 3, 3, TILE_MESSAGES], dtype=torch.int32, device=cuda)
+    got, want, touched = _segment_run(small, m, kw, key, 100)
+    assert segment_reduce.fixup_launches[key] == before[1][key] + 2
+    assert segment_reduce.launches[key] == before[0][key] + 3
+    assert _rel_to_max(got[touched], want[touched]) <= 1e-5
+
+
+@pytest.mark.parametrize("key", sorted(INSTANTIATIONS))
+# rows wider than a ring stage (12,289 f32 columns: 49,156 bytes a half),
+# 13 windows; 1,037 columns one element into a buffer, so that each row's
+# window, and each half, lies at another offset of its 16-byte words
+@pytest.mark.parametrize("d, shift", [(12_289, 0), (1_037, 1)])
+def test_segment_reduce_streams_wide_rows_by_column_window(cuda, key, d, shift):
+    rowptr, m, kw = _segment_inputs(cuda, key, d, n=300)
+    if shift:
+        buf = torch.empty(m.numel() + shift, dtype=m.dtype, device=cuda)
+        m = buf[shift:].view(m.shape).copy_(m)
+    assert tiling(rowptr, m, kw["halves"])["path"] == "windows"
+    windows = -(-d // COLUMN_WINDOW)
+    before = segment_reduce.launches[key], segment_reduce.fixup_launches[key]
+    got, want, touched = _segment_run(rowptr, m, kw, key, d)
+    assert segment_reduce.launches[key] == before[0] + windows
+    assert segment_reduce.fixup_launches[key] == before[1] + windows
+    assert _rel_to_max(got[touched], want[touched]) <= 1e-5
+    assert torch.equal(_segment_run(rowptr, m, kw, key, d)[0], got)
 
 
 @pytest.mark.parametrize("d", [128, 100, 37])

@@ -29,7 +29,9 @@ from sgl_tpu_torch.kernels import (
     segment_reduce,
     segment_reduce_reference,
 )
-from sgl_tpu_torch.kernels.segment_reduce import INSTANTIATIONS
+from sgl_tpu_torch.dev import tune_segment_reduce as TUNE_SEGMENT
+from sgl_tpu_torch.dev.tune_spmm_csr import source_constants, variant_source
+from sgl_tpu_torch.kernels.segment_reduce import COLUMN_WINDOW, INSTANTIATIONS, TILE_MESSAGES, tiling
 
 #: the graph of the JAX harness's ``--check`` (``dev/exp_spmm.py:238``)
 SMALL = (2000, 8, 64)
@@ -292,6 +294,116 @@ def test_each_form_matches_a_numpy_loop(key):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     empty = (torch.diff(rowptr) == 0).numpy()
     assert empty.sum() >= 5 and not got.numpy()[empty].any()
+
+
+#: a small tile, so that small rows cross tile edges
+TILE = 8
+# rows of T-1, T and T+1 messages, 3T+5, one across 12 tiles, empty rows at
+# tile edges (offsets 8 and 16) and inside a tile, trailing empty rows
+TILE_LENGTHS = [0, TILE, 0, TILE - 1, 1, 0, TILE + 1, 3 * TILE + 5, 0, 2, 12 * TILE + 3, TILE, 0, 5, 0, 0, 0]
+
+
+def _tile_inputs(key, d=6, seed=3):
+    dtype, halves, n_w, _, _ = INSTANTIATIONS[key]
+    rng = np.random.default_rng(seed)
+    rowptr = torch.as_tensor(np.concatenate([[0], np.cumsum(TILE_LENGTHS)]), dtype=torch.int32)
+    e = int(rowptr[-1])
+    m = torch.as_tensor(rng.normal(size=(e, halves * d)).astype(np.float32)).to(dtype)
+    wh, wl = exp_spmm.split_bf16(torch.as_tensor(rng.random(e).astype(np.float32) + 0.5))
+    return rowptr, m, dict(halves=halves, wh=wh if n_w >= 1 else None, wl=wl if n_w == 2 else None)
+
+
+def _numpy_tile_order(rowptr, m, halves, wh, wl, tile):
+    """The kernel's order, message by message in f32: each row's piece of
+    each tile summed in edge order from 0, the pieces added in tile order
+    from 0."""
+    msgs = _numpy_loop(torch.arange(m.shape[0] + 1, dtype=torch.int32), m, halves, wh, wl)
+    rowptr = rowptr.numpy()
+    y = np.zeros((rowptr.shape[0] - 1, msgs.shape[1]), np.float32)
+    for r in range(y.shape[0]):
+        beg, end = rowptr[r], rowptr[r + 1]
+        for t in range(beg // tile, (end + tile - 1) // tile) if end > beg else ():
+            piece = np.zeros(msgs.shape[1], np.float32)
+            for e in range(max(beg, t * tile), min(end, (t + 1) * tile)):
+                piece += msgs[e]
+            y[r] += piece
+    return y
+
+
+@pytest.mark.parametrize("key", sorted(INSTANTIATIONS))
+def test_twin_sums_in_tile_order(key):
+    rowptr, m, kw = _tile_inputs(key)
+    starts = rowptr[:-1].numpy()
+    empty = (torch.diff(rowptr) == 0).numpy()
+    assert (empty & (starts % TILE == 0) & (starts > 0)).sum() >= 2 and empty[-3:].all()
+    assert (torch.diff(rowptr) > 10 * TILE).any()
+    want = _numpy_tile_order(rowptr, m, kw["halves"], kw["wh"], kw["wl"], TILE)
+    if INSTANTIATIONS[key][3]:  # the accumulating form, into random rows at an offset
+        n, off = rowptr.shape[0] - 1, 3
+        acc0 = torch.randn(off + n + 2, want.shape[1], generator=torch.Generator().manual_seed(4))
+        got = segment_reduce_reference(rowptr, m, out=acc0.clone(), row_offset=off, tile=TILE, **kw)
+        touched = torch.zeros(acc0.shape[0], dtype=torch.bool)
+        touched[off:off + n] = torch.diff(rowptr) > 0
+        assert torch.equal(got[~touched], acc0[~touched])
+        got = (got - acc0)[off:off + n]
+    else:
+        got = segment_reduce_reference(rowptr, m, tile=TILE, **kw)
+        assert not got.numpy()[empty].any()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # the kernel's cut at the small tile: the rows that cross an edge
+    cut = tiling(rowptr, m, kw["halves"], tile=TILE)
+    assert cut["tiles"] == -(-int(rowptr[-1]) // TILE) and cut["cut_rows"] == 4
+    assert cut["windows"] == 1 and cut["path"] != "windows"
+    wide = tiling(rowptr, torch.zeros(m.shape[0], kw["halves"] * (COLUMN_WINDOW + 1)), kw["halves"], tile=TILE)
+    assert wide["windows"] == 2 and wide["path"] == "windows"
+
+
+@pytest.mark.parametrize("key", sorted(INSTANTIATIONS))
+def test_twin_at_the_kernel_tile_is_close_to_float64_on_a_long_row(key):
+    # one row of 20,000 messages (40 tiles) between short ones, against
+    # the same f32 messages summed in float64
+    dtype, halves, n_w, accumulate, _ = INSTANTIATIONS[key]
+    lengths = [3, 20_000, 0, 7]
+    rowptr = torch.as_tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int32)
+    rng = np.random.default_rng(5)
+    m = torch.as_tensor(rng.normal(size=(rowptr[-1].item(), halves * 16)).astype(np.float32)).to(dtype)
+    wh, wl = exp_spmm.split_bf16(torch.as_tensor(rng.random(m.shape[0]).astype(np.float32) + 0.5))
+    kw = dict(halves=halves, wh=wh if n_w >= 1 else None, wl=wl if n_w == 2 else None)
+    out = torch.zeros(len(lengths), 16) if accumulate else None
+    got = segment_reduce_reference(rowptr, m, out=out, **kw)
+    msgs = _numpy_loop(torch.arange(m.shape[0] + 1, dtype=torch.int32), m, halves, kw["wh"], kw["wl"])
+    want = np.add.reduceat(msgs.astype(np.float64), np.minimum(rowptr[:-1].numpy(), m.shape[0] - 1))
+    want[np.diff(rowptr.numpy()) == 0] = 0
+    assert _rel(got.numpy(), want) <= 1e-6
+
+
+def test_tile_length_is_the_kernel_source_constant():
+    # the wrapper sizes the workspace by TILE_MESSAGES, the kernel cuts by
+    # kTileMessages; the wrapper counts a launch per column window of
+    # COLUMN_WINDOW, the kernel launches one per kThreads * kColsMax columns
+    text = TUNE_SEGMENT.SOURCE.read_text()
+    assert source_constants(text, TUNE_SEGMENT.CONSTANTS)["kTileMessages"] == TILE_MESSAGES
+    window = source_constants(text, ("kThreads", "kColsMax"))
+    assert window["kThreads"] * window["kColsMax"] == COLUMN_WINDOW
+    assert "kWindowCols = (int64_t)kThreads * kColsMax;" in text
+
+
+@pytest.mark.parametrize("name, value", list(TUNE_SEGMENT.VARIANTS))
+def test_segment_tune_variant_changes_one_constant(name, value):
+    text = TUNE_SEGMENT.SOURCE.read_text()
+    as_is = source_constants(text, TUNE_SEGMENT.CONSTANTS)
+    assert as_is[name] != value
+    variant = variant_source(text, name, value, TUNE_SEGMENT.CONSTANTS)
+    assert source_constants(variant, TUNE_SEGMENT.CONSTANTS) == {**as_is, name: value}
+    assert sum(a != b for a, b in zip(text.splitlines(), variant.splitlines())) == 1
+    with pytest.raises(ValueError, match="not one of"):
+        variant_source(text, "kSplitNnz", 256, TUNE_SEGMENT.CONSTANTS)
+
+
+def test_segment_tune_refuses_to_run_without_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA device"):
+        TUNE_SEGMENT.main([])
 
 
 def test_accumulate_keeps_untouched_rows_bit_for_bit():

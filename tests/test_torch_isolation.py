@@ -15,7 +15,7 @@ MODULES = [
     "sgl_tpu_torch", "sgl_tpu_torch.convert", "sgl_tpu_torch.kernels._build",
     "sgl_tpu_torch.examples.products_scale_demo", "sgl_tpu_torch.dev.exp_spmm",
     "sgl_tpu_torch.dev.exp_gather_dma", "sgl_tpu_torch.dev.exp_acc_alias",
-    "sgl_tpu_torch.dev.tune_spmm_csr",
+    "sgl_tpu_torch.dev.tune_spmm_csr", "sgl_tpu_torch.dev.tune_segment_reduce",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
 ]
