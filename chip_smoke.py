@@ -16,7 +16,8 @@ Phases; any failure raises and the script exits non-zero:
    tensor, used nowhere in the port) with CUDA events; print the split
    plan (long rows cut into segments of ``SPLIT_NNZ`` nonzeros), the f32
    error against a float64 sum, and the hub row alone against the whole
-   kernel;
+   kernel; then the kernel on the same CSR with each row sorted by source,
+   timed in turns with the rows as built;
 3. run the main path at full width through the user-facing entry points on
    the default device: ``NodeClassification`` with GAMLP (f32 precompute)
    and with SGC (bf16 precompute) on a 100k-node power-law dataset, with
@@ -54,10 +55,23 @@ Phases; any failure raises and the script exits non-zero:
    function where there is one (``torch.segment_reduce`` for ``f32``,
    ``torch.sparse.mm`` for ``f32_w2``), with the device time of pass 1 and
    the fix-up apart (``torch.profiler``), one message array at a time;
-7. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
-   (for K1–K4 and D2–D6 also the fix-up's), errors and times beside its
-   bound;
-8. print ``{"ok": true, "device": {...}}`` as the last line.
+   then D1's probe five more times back to back, each time printed;
+7. the model zoo on the card: ``NodeClassification`` with SIGN, SSGC (bf16
+   precompute), GBP, GAMLPRecursive and PASCA_V1–V3 at the main path's
+   dataset and widths (hidden 512, 3 layers; 5 epochs), the launch
+   counters set to 0 just before each run and read just after, each
+   model's preprocessed features against the port's CPU path of the same
+   model; NAFS's preprocess (propagation and the over-smoothing
+   aggregate) against the CPU path; the README's flow on Planetoid-format
+   raw files at pubmed's shape, written from a seed into a temporary
+   directory (``Planetoid`` → ``SGC`` → ``NodeClassification``); the
+   native graph builder (built with ``g++``; the run fails without it), and on the
+   products graph of phase 5 the host normalization against the card's,
+   both timed;
+8. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
+   (for K1–K4 and D2–D6 also the fix-up's; for K1/K2 also phase 7's, as
+   ``zoo_launches``), errors and times beside its bound;
+9. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
 to it, and exits non-zero without printing a result when either is missing.
@@ -113,6 +127,14 @@ GATHER = dict(n=1 << 20, d=128, es=(1 << 18, 1 << 20))
 DEV_VARIANT = {"bf16_acc": "b", "bf16_hilo": "factored", "f32": "factored_f32",
                "bf16_hilo_w2": "packed", "f32_w2": "a", "bf16_w": "b"}
 D2_ROW_OFFSET = 256
+# D1's probe is run this many more times back to back after the counted run
+D1_REPEATS = 5
+# phase 7: the main path's dataset and widths (bench.py:246-247), 5 epochs
+ZOO_DATASET = dict(num_nodes=100_000, avg_degree=20, feat_dim=128, num_classes=64, seed=1)
+ZOO_HIDDEN, ZOO_LAYERS, ZOO_EPOCHS = 512, 3, 5
+# the host normalization against the card's, elementwise relative: one
+# powf rounding on each side
+HOST_NORM_TOL = 1e-6
 # kernel vs twin, of max|y|, for every form: the same messages summed in f32
 # in the same order (products of bf16 inputs are exact in f32), so only the
 # kernel's fused multiply-adds inside one message differ; D1: two f32 orders
@@ -210,6 +232,7 @@ def kernel_phase(dev):
             f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; ops {2 * e * d / F32_FLOPS * 1e3:.4f} ms); "
             f"library {lib_note}; two runs bit-equal")
     skew_probe(dev, adj, x32, results["f32"]["ms"])
+    row_order_probe(adj, x32)
     return results
 
 
@@ -271,6 +294,31 @@ def skew_probe(dev, adj, x, kernel_ms):
         f"(accumulating form, no other row written) {row_ms:.4f} ms, {row_ms / kernel_ms:.1%}; "
         f"degree-uniform graph ({uni.nnz} nonzeros, longest row {int(torch.diff(uni.rowptr.long()).max())}) "
         f"{uni_ms:.4f} ms")
+
+
+def row_order_probe(adj, x32) -> None:
+    """What the order of the nonzeros within a row costs the CSR kernel:
+    the graph as built (above 1M edges each row keeps the input order, as
+    ``sgl_tpu`` keeps it) against the same CSR with each row sorted by
+    source (the order ``lexsort`` gives smaller graphs), timed in turns
+    (as built, sorted, sorted, as built) in this one call."""
+    from sgl_tpu_torch.kernels import CsrAdj, spmm_csr
+
+    rows = torch.repeat_interleave(torch.arange(adj.num_nodes, device=x32.device),
+                                   torch.diff(adj.rowptr.long()))
+    order = torch.argsort(rows * adj.num_nodes + adj.col.long())
+    by_src = CsrAdj(adj.rowptr, adj.col[order].contiguous(), adj.val[order].contiguous(), adj.num_nodes,
+                    adj.plan)
+    for key, dtype in DTYPES.items():
+        x = x32.to(dtype)
+        err = rel_err(spmm_csr(by_src, x), spmm_csr(adj, x))[1]
+        check(err <= TOL[key], f"[2] row order probe {key}: the two orders differ by {err:.3e}")
+        built, by_src_ms = [], []
+        for csr, out in ((adj, built), (by_src, by_src_ms), (by_src, by_src_ms), (adj, built)):
+            out.append(time_ms(lambda: spmm_csr(csr, x)))
+        log(f"[2] row order probe {key}: rows as built {[round(t, 4) for t in built]} ms, each row "
+            f"sorted by source {[round(t, 4) for t in by_src_ms]} ms (in turns, one call); the two "
+            f"orders' outputs differ by {err:.3e} of max|y|")
 
 
 def main_path_phase(dev):
@@ -545,12 +593,14 @@ def products_phase(dev):
     check(err <= TOL["f32"], f"small pipeline: CUDA hops vs the CPU path {err:.3e}")
     log(f"[5] small pipeline ({small}): CUDA hop stack vs the CPU path max rel err {err:.3e}")
 
-    results = {}
+    results, graph = {}, None
     for key, dtype, train in (("f32", None, True), ("bf16", torch.bfloat16, False)):
         reset_launches()
         t = time.perf_counter()
         out = products_scale_demo.main(**PRODUCTS, dtype=dtype, train=train)
         wall = time.perf_counter() - t
+        if graph is None:
+            graph = out["graph"]  # phase 7 normalizes the f32 run's graph on the host
         counts, fixups = dict(spmm_csr.launches), dict(spmm_csr.fixup_launches)
         parts, stack = out["parts"], out["hops"]
         want_counts = {k: 0 for k in counts}
@@ -617,7 +667,7 @@ def products_phase(dev):
         )
         del out, stack, x, parts
         torch.cuda.empty_cache()
-    return results
+    return results, graph
 
 
 def reset_dev_launches() -> None:
@@ -811,6 +861,14 @@ def dev_phase(dev):
         del m, got, want, run, twin
         torch.cuda.empty_cache()
 
+    # D1 again, D1_REPEATS probes back to back: its 2^18-id time moved
+    # between runs of the same code
+    repeats = [exp_gather_dma.probe(**GATHER, device=dev) for _ in range(D1_REPEATS)]
+    for i, r in enumerate(zip(*repeats)):
+        log(f"[6] gather_sum (D1) E={GATHER['es'][i]}, {D1_REPEATS} probes back to back: ms "
+            f"{[round(p['ms'], 4) for p in r]} (bound {r[0]['bound_ms']:.4f} ms; share of the bound "
+            f"{[round(p['bound_ms'] / p['ms'], 3) for p in r]})")
+
     big = gather[-1]  # E = 2^20
     results["gather_sum"] = dict(
         abs_err=max(r["abs_err"] for r in gather), rel_err=max(r["err"] for r in gather),
@@ -824,6 +882,145 @@ def dev_phase(dev):
                     f"(max rel err {r['library_err']:.2e})" for r in gather))
     return launches, results
 
+
+
+def zoo_run(name, key, make, pdtype, ds, want_launches, dev) -> dict:
+    """One zoo model through ``NodeClassification`` on the card, the launch
+    counters set to 0 just before and read just after; its preprocessed
+    features against the port's CPU path of the same model."""
+    from sgl_tpu_torch.kernels import spmm_csr
+    from sgl_tpu_torch.tasks import NodeClassification
+
+    model = make()
+    reset_launches()
+    task = NodeClassification(ds, model, lr=0.1, weight_decay=5e-5, epochs=ZOO_EPOCHS, verbose=False,
+                              precompute_dtype=pdtype)
+    counts, fixups = dict(spmm_csr.launches), dict(spmm_csr.fixup_launches)
+    pf = model.processed_feature
+    check(pf.is_cuda and torch.isfinite(pf.float()).all().item(), f"[7] {name}: bad features")
+    check(counts[key] >= want_launches,
+          f"[7] {name}: the {key} kernel ran {counts[key]} times, expected >= {want_launches}")
+    check(0.0 <= task.test_acc <= 1.0, f"[7] {name}: test accuracy {task.test_acc}")
+    cpu = make()
+    cpu.preprocess(ds.graph, ds.x, dtype=pdtype, device="cpu")
+    err = rel_err(pf.cpu(), cpu.processed_feature)[1]
+    check(err <= TOL[key], f"[7] {name}: features vs the CPU path {err:.3e} (limit {TOL[key]:.0e})")
+    epochs_ms = [t * 1e3 for t in task.epoch_seconds]
+    log(f"[7] {name}: launches {counts}, fix-up launches {fixups}; features {tuple(pf.shape)} {pf.dtype}, "
+        f"vs the CPU path max rel err {err:.3e} (limit {TOL[key]:.0e}); preprocess "
+        f"{task.preprocess_seconds:.4f} s; train epoch ms {[round(m, 3) for m in epochs_ms]} (median "
+        f"{statistics.median(epochs_ms):.3f}); best-val test acc {task.test_acc:.4f}")
+    return dict(counts=counts, fixups=fixups, preprocess_s=task.preprocess_seconds,
+                epoch_ms=statistics.median(epochs_ms))
+
+
+def zoo_phase(dev, products_graph):
+    """The model zoo through the user's entry points on the card (section
+    7 of the module docstring).  Returns the CSR kernel's launches, summed
+    over the zoo's runs."""
+    from sgl_tpu_torch.datasets import Planetoid, SyntheticPowerLaw
+    from sgl_tpu_torch.datasets.planetoid import write_raw_files
+    from sgl_tpu_torch.graph import native, symmetric_normalized_weights, symmetric_normalized_weights_host
+    from sgl_tpu_torch.kernels import spmm_csr
+    from sgl_tpu_torch.models import GBP, NAFS, PASCA_V1, PASCA_V2, PASCA_V3, SGC, SIGN, SSGC, GAMLPRecursive
+    from sgl_tpu_torch.tasks import NodeClassification
+
+    ds = SyntheticPowerLaw(**ZOO_DATASET)
+    d, c, k = ds.num_features, ds.num_classes, 3
+    wide = (d, c, ZOO_HIDDEN, ZOO_LAYERS)
+    runs = (  # name, kernel, constructor, precompute dtype, launches at least
+        ("SIGN", "f32", lambda: SIGN(k, *wide), None, k),
+        ("SSGC bf16", "bf16", lambda: SSGC(k, d, c), torch.bfloat16, k),
+        ("GBP", "f32", lambda: GBP(k, *wide), None, k),
+        ("GAMLPRecursive", "f32", lambda: GAMLPRecursive(k, *wide), None, k),
+        ("PASCA_V1", "f32", lambda: PASCA_V1(k, *wide), None, k),
+        ("PASCA_V2", "f32", lambda: PASCA_V2(k, *wide), None, k),
+        ("PASCA_V3", "f32", lambda: PASCA_V3(k, k, *wide), None, 2 * k),  # post_steps 3
+    )
+    launches = {"f32": 0, "bf16": 0, "fixup_f32": 0, "fixup_bf16": 0}
+    times = {}
+
+    def add(counts, fixups):
+        for key in ("f32", "bf16"):
+            launches[key] += counts[key]
+            launches["fixup_" + key] += fixups[key]
+
+    for name, key, make, pdtype, want in runs:
+        r = zoo_run(name, key, make, pdtype, ds, want, dev)
+        add(r["counts"], r["fixups"])
+        times[name] = (round(r["preprocess_s"], 4), round(r["epoch_ms"], 3))
+        torch.cuda.empty_cache()
+    log(f"[7] zoo (preprocess s, median epoch ms): {times}")
+
+    # NAFS: training-free; its preprocess propagates and takes the
+    # over-smoothing aggregate
+    reset_launches()
+    nafs = {dv: NAFS(k, d, c) for dv in ("cuda", "cpu")}
+    t = time.perf_counter()
+    nafs["cuda"].preprocess(ds.graph, device=dev)
+    torch.cuda.synchronize()
+    nafs_s = time.perf_counter() - t
+    counts, fixups = dict(spmm_csr.launches), dict(spmm_csr.fixup_launches)
+    add(counts, fixups)
+    nafs["cpu"].preprocess(ds.graph, device="cpu")
+    got, want = nafs["cuda"].processed_feature, nafs["cpu"].processed_feature
+    check(got.is_cuda and got.shape == (ds.num_node, d) and torch.isfinite(got).all().item(), "[7] NAFS output")
+    check(counts["f32"] >= k, f"[7] NAFS: launches {counts}")
+    err = rel_err(got.cpu(), want)[1]
+    check(err <= TOL["f32"], f"[7] NAFS vs the CPU path {err:.3e}")
+    log(f"[7] NAFS preprocess on the card {nafs_s:.4f} s, launches {counts}; vs the CPU path max rel err "
+        f"{err:.3e} (limit {TOL['f32']:.0e})")
+
+    # the README's flow, on Planetoid-format files at pubmed's shape
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        write_raw_files(f"{root}/Planetoid/pubmed/raw", "pubmed", seed=0)
+        write_s = time.perf_counter() - t
+        reset_launches()
+        t = time.perf_counter()
+        dataset = Planetoid("pubmed", root + "/", "official")
+        parse_s = time.perf_counter() - t
+        model = SGC(prop_steps=3, feat_dim=dataset.num_features, output_dim=dataset.num_classes)
+        task = NodeClassification(dataset, model, lr=0.2, weight_decay=5e-5, epochs=100, verbose=False)
+        counts, fixups = dict(spmm_csr.launches), dict(spmm_csr.fixup_launches)
+        add(counts, fixups)
+        cpu = SGC(3, dataset.num_features, dataset.num_classes)
+        cpu.preprocess(dataset.graph, dataset.x, device="cpu")
+        err = rel_err(model.processed_feature.cpu(), cpu.processed_feature)[1]
+    check((dataset.num_node, dataset.num_features, dataset.num_classes) == (19_717, 500, 3),
+          f"[7] pubmed shape {dataset.num_node}, {dataset.num_features}, {dataset.num_classes}")
+    check(dataset.graph.num_edges == 2 * 44_324, f"[7] pubmed edges {dataset.graph.num_edges}")
+    check(counts["f32"] >= 3 and err <= TOL["f32"], f"[7] pubmed SGC: launches {counts}, vs CPU {err:.3e}")
+    check(0.6 <= task.test_acc <= 1.0, f"[7] pubmed SGC test accuracy {task.test_acc}")
+    log(f"[7] Planetoid pubmed (raw files written in {write_s:.2f} s, parsed in {parse_s:.2f} s: "
+        f"{dataset.num_node} nodes, {dataset.graph.num_edges} directed edges, {dataset.num_features} "
+        f"features, {dataset.num_classes} classes) -> SGC(3) -> NodeClassification on the card: launches "
+        f"{counts}, preprocess {task.preprocess_seconds:.4f} s, median epoch ms "
+        f"{statistics.median(task.epoch_seconds) * 1e3:.3f}, test acc {task.test_acc:.4f}; features vs "
+        f"the CPU path {err:.3e}")
+
+    # the native graph builder, and the host normalization of the products graph
+    check(native.native_available(), "[7] the native graph builder did not build with g++")
+    t = time.perf_counter()
+    host = symmetric_normalized_weights_host(products_graph)
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    on_card = symmetric_normalized_weights(products_graph, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    check(torch.equal(host.src, on_card.src.cpu()) and torch.equal(host.dst, on_card.dst.cpu()),
+          "[7] host and card normalization order the edges differently")
+    w = on_card.w.cpu()
+    nz = w != 0
+    rel = ((host.w[nz] - w[nz]).abs() / w[nz].abs()).max().item()
+    check(rel <= HOST_NORM_TOL and torch.equal(host.w[~nz], w[~nz]),
+          f"[7] host normalization vs the card's: {rel:.3e} (limit {HOST_NORM_TOL:.0e})")
+    log(f"[7] native graph builder: available; products graph ({products_graph.num_nodes} nodes, "
+        f"{host.w.shape[0]} edges with self-loops): symmetric_normalized_weights_host {host_s:.4f} s, "
+        f"on the card {card_s:.4f} s; max elementwise rel diff {rel:.3e} (limit {HOST_NORM_TOL:.0e}), "
+        f"edge order identical")
+    return launches
 
 
 def main() -> int:
@@ -878,23 +1075,27 @@ def main() -> int:
     launches, main_errs = phase("3", main_path_phase, dev)
     phase("3 small graph", reference_check_phase, dev)
     stream_bench = phase("4", streaming_bench_phase, dev, bench)
-    products = phase("5", products_phase, dev)
+    products, products_graph = phase("5", products_phase, dev)
     dev_launches, dev_results = phase("6", dev_phase, dev)
+    zoo_launches = phase("7", zoo_phase, dev, products_graph)
     print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products,
-                                  dev_launches, dev_results)))
+                                  dev_launches, dev_results, zoo_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
 
 
-def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results) -> dict:
+def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
+                 zoo_launches) -> dict:
     kernels = []
     for key in ("f32", "bf16"):
         r = bench[key]
         kernels.append({
             "name": f"spmm_csr_{key}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": launches[key], "fixup_launches": launches.get("fixup_" + key),
+            # phase 7, the model zoo, counted apart from the main path
+            "zoo_launches": zoo_launches[key], "zoo_fixup_launches": zoo_launches["fixup_" + key],
             # the larger error of the two shapes checked (bench and main path)
             "max_abs_err": max(r["abs_err"], main_errs[key][0]),
             "max_rel_err": max(r["rel_err"], main_errs[key][1]),

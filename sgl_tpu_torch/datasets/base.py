@@ -3,14 +3,15 @@
 Counterpart of ``sgl_tpu/datasets/base.py::NodeDataset`` and
 ``random_split``.  Processed graphs are pickled host-numpy
 :class:`~sgl_tpu_torch.graph.Graph` containers.  Downloading is not part of
-this package yet: a loader whose raw files are missing raises.
+this package: a loader whose raw files are missing raises, naming the files
+to place under its ``raw/`` directory.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,14 +69,23 @@ class NodeDataset:
                 pickle.dump(self.graph, f)
             os.replace(tmp, self.processed_path)  # atomic: cache is idempotent
 
+    @property
+    def raw_file_paths(self) -> List[str]:
+        """The raw files a loader parses (empty for generated datasets)."""
+        return []
+
     def _raw_exists(self) -> bool:
+        if self.raw_file_paths:
+            return all(os.path.exists(p) for p in self.raw_file_paths)
         return os.path.isdir(self.raw_dir) and bool(os.listdir(self.raw_dir))
 
     def _download(self) -> None:
+        names = [os.path.basename(p) for p in self.raw_file_paths]
+        missing = [n for n in names if not os.path.exists(os.path.join(self.raw_dir, n))]
+        wanted = f": {', '.join(missing)}" if missing else ""
         raise IOError(
             f"raw files for dataset {self.name!r} not found under {self.raw_dir}; "
-            "sgl_tpu_torch does not download datasets yet, place the raw files "
-            "there manually"
+            f"sgl_tpu_torch does not download datasets, place the raw files there{wanted}"
         )
 
     def _process(self) -> Graph:
@@ -103,6 +113,14 @@ class NodeDataset:
     @property
     def y(self):
         return self.graph.y
+
+    @property
+    def adj(self) -> Graph:
+        return self.graph
+
+    @property
+    def data(self) -> Graph:
+        return self.graph
 
     @property
     def num_node(self) -> int:

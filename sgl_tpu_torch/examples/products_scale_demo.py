@@ -137,6 +137,7 @@ def main(
     default), ``hop_seconds``, ``csr`` (the normalized
     :class:`~sgl_tpu_torch.kernels.CsrAdj`), ``parts`` (its
     :class:`~sgl_tpu_torch.kernels.CsrParts`), ``nnz``,
+    ``graph`` (the host :class:`~sgl_tpu_torch.graph.Graph`),
     ``graph_seconds``, ``prepare_seconds`` and, with ``train``, the result
     of :func:`train_at_scale` for GAMLP (hidden 512, 3 layers, 47 classes)
     under ``train``.
@@ -158,7 +159,6 @@ def main(
           f"({parts.nnz} nonzeros with self-loops; {prepare_seconds:.4f}s)")
 
     x = torch.as_tensor(g.x).to(device, dtype or torch.float32)
-    del g
     stack = torch.empty((hops + 1, *x.shape), dtype=x.dtype, device=device)
     stack[0] = x
     del x
@@ -177,7 +177,7 @@ def main(
           f"{parts.nnz / steady / 1e9:.4f} G nonzeros/s")
     out = {
         "hops": stack, "hop_seconds": times, "csr": csr, "parts": parts, "nnz": parts.nnz,
-        "graph_seconds": graph_seconds, "prepare_seconds": prepare_seconds,
+        "graph_seconds": graph_seconds, "prepare_seconds": prepare_seconds, "graph": g,
     }
     if train:
         # the reference's ogbn-products GAMLP: hidden 512, 3 layers, 47 classes

@@ -4,15 +4,15 @@ Counterpart of ``sgl_tpu/graph/graph.py::Graph`` with the same layout and
 padding convention, so both packages build identical arrays from the same
 edges:
 
-* edges are sorted by ``dst`` (then ``src``), three flat arrays
-  ``(src, dst, val)``;
+* edges are sorted by ``dst``, three flat arrays ``(src, dst, val)``: up
+  to :data:`NATIVE_SORT_EDGES` edges by ``(dst, src)`` (numpy
+  ``lexsort``), above it by ``dst`` alone with the input order kept within
+  a row (the native OpenMP counting sort of ``graph/native.py``, or its
+  stable numpy fallback), as ``sgl_tpu`` sorts;
 * padding edges are ``src=0, dst=num_nodes-1, val=0``: they contribute
   zero to degrees and products and keep ``dst`` sorted.
 
 The graph stays in host memory; the graph ops build device tensors from it.
-Sorting is numpy ``lexsort`` at every size (``sgl_tpu`` switches to a native
-OpenMP sort above 1M edges; only the ``dst`` order matters to the kernels,
-so the two agree on every array the kernels read).
 """
 
 from __future__ import annotations
@@ -21,6 +21,12 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+
+from sgl_tpu_torch.graph import native
+
+#: Above this many edges :meth:`Graph.from_coo` sorts with the native
+#: stable sort by dst instead of ``lexsort`` (``sgl_tpu``'s threshold).
+NATIVE_SORT_EDGES = 1_000_000
 
 
 def _round_up(x: int, m: int) -> int:
@@ -74,8 +80,11 @@ class Graph:
             raise ValueError("dst indices out of range")
         num_edges = int(src.shape[0])
         if sort and num_edges:
-            order = np.lexsort((src, dst))
-            src, dst, val = src[order], dst[order], val[order]
+            if num_edges > NATIVE_SORT_EDGES:
+                src, dst, val = native.sort_edges_by_dst(src, dst, val, num_nodes)
+            else:
+                order = np.lexsort((src, dst))
+                src, dst, val = src[order], dst[order], val[order]
         pad = pad_amount(num_edges, pad_multiple)
         if pad:
             src = np.concatenate([src, np.zeros(pad, np.int32)])
@@ -108,6 +117,18 @@ class Graph:
             return int(y.shape[-1])
         return int(y.max()) + 1
 
+    def node_degrees(self) -> np.ndarray:
+        """Weighted out-degree (row sums of the stored adjacency)."""
+        deg = np.zeros(self.num_nodes, dtype=np.float32)
+        np.add.at(deg, np.asarray(self.src), np.asarray(self.val))
+        return deg
+
+    def in_degrees(self) -> np.ndarray:
+        """Weighted in-degree (column sums of the stored adjacency)."""
+        deg = np.zeros(self.num_nodes, dtype=np.float32)
+        np.add.at(deg, np.asarray(self.dst), np.asarray(self.val))
+        return deg
+
     def replace(self, **kw) -> "Graph":
         return dataclasses.replace(self, **kw)
 
@@ -115,3 +136,20 @@ class Graph:
         """Real (un-padded) edges as numpy arrays."""
         e = self.num_edges
         return self.src[:e], self.dst[:e], self.val[:e]
+
+
+def from_scipy(adj, x=None, y=None, pad_multiple: int = 1024) -> Graph:
+    """A :class:`Graph` from any scipy sparse matrix (row = src, col = dst)."""
+    coo = adj.tocoo()
+    return Graph.from_coo(
+        coo.row, coo.col, coo.data, num_nodes=int(adj.shape[0]), x=x, y=y,
+        pad_multiple=pad_multiple,
+    )
+
+
+def to_scipy(graph: Graph):
+    """The real edges as a scipy CSR matrix (row = src, col = dst)."""
+    import scipy.sparse as sp
+
+    s, d, v = graph.edges()
+    return sp.csr_matrix((v, (s, d)), shape=(graph.num_nodes, graph.num_nodes))

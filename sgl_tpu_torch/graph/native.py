@@ -1,0 +1,145 @@
+"""ctypes bridge to the native graph builder (``graph/csrc/graph_builder.cpp``).
+
+Counterpart of ``sgl_tpu/graph/native.py`` for what the port's graph layer
+needs: the stable sort of edges by destination, degrees, normalized
+weights and a parallel row gather, all on the host.  The library is the
+port's own copy of those C++ functions, built at first use with
+``g++ -O3 -fopenmp -shared -fPIC`` into ``sgl_tpu_torch/_build/``
+(``kernels/_build.py::build_host``).  Every entry point keeps a numpy
+fallback that gives the same result (the sort: a stable ``argsort`` by
+dst, the same order); :func:`native_available` says which one runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import numpy.ctypeslib as ctl
+
+from sgl_tpu_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "graph_builder.cpp"
+
+
+@functools.cache
+def _load() -> Optional[ctypes.CDLL]:
+    """The library, built on first use; None when it cannot be built or
+    loaded (the numpy fallbacks run then)."""
+    try:
+        lib = ctypes.CDLL(str(_build.build_host(SOURCE)))
+    except (RuntimeError, OSError, FileNotFoundError):
+        return None
+    i32 = ctl.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    f32 = ctl.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    lib.sgl_sort_edges_by_dst.argtypes = [i32, i32, f32, ctypes.c_int64, ctypes.c_int32, i32, i32, f32]
+    lib.sgl_compute_degrees.argtypes = [i32, f32, ctypes.c_int64, ctypes.c_int32, f32]
+    lib.sgl_normalized_weights.argtypes = [i32, i32, f32, ctypes.c_int64, f32, ctypes.c_float, f32]
+    lib.sgl_gather_rows.argtypes = [ctypes.c_void_p, ctypes.c_int64, i32, ctypes.c_int64, ctypes.c_void_p]
+    for fn in ("sgl_sort_edges_by_dst", "sgl_compute_degrees", "sgl_normalized_weights", "sgl_gather_rows"):
+        getattr(lib, fn).restype = None
+    return lib
+
+
+def native_available() -> bool:
+    """True when the native library is built and loaded; False when the
+    numpy fallbacks run."""
+    return _load() is not None
+
+
+def sort_edges_by_dst(
+    src: np.ndarray, dst: np.ndarray, val: np.ndarray, num_nodes: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stable parallel counting sort of COO edges by dst: within a dst, the
+    input order is kept (fallback: ``np.argsort(dst, kind="stable")``)."""
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    val = np.ascontiguousarray(val, np.float32)
+    lib = _load()
+    if lib is None:
+        order = np.argsort(dst, kind="stable")
+        return src[order], dst[order], val[order]
+    n = src.shape[0]
+    out_src = np.empty(n, np.int32)
+    out_dst = np.empty(n, np.int32)
+    out_val = np.empty(n, np.float32)
+    lib.sgl_sort_edges_by_dst(src, dst, val, n, num_nodes, out_src, out_dst, out_val)
+    return out_src, out_dst, out_val
+
+
+def compute_degrees(src: np.ndarray, val: np.ndarray, num_nodes: int) -> np.ndarray:
+    """f32 ``deg[i] = Σ val[e]`` over the edges with ``src[e] == i``."""
+    src = np.ascontiguousarray(src, np.int32)
+    val = np.ascontiguousarray(val, np.float32)
+    deg = np.zeros(num_nodes, np.float32)
+    lib = _load()
+    if lib is None:
+        np.add.at(deg, src, val)
+        return deg
+    lib.sgl_compute_degrees(src, val, src.shape[0], num_nodes, deg)
+    return deg
+
+
+def normalized_weights(
+    src: np.ndarray, dst: np.ndarray, val: np.ndarray, deg: np.ndarray, r: float
+) -> np.ndarray:
+    """``w[e] = deg[dst]^(r-1) · val[e] · deg[src]^(-r)``, 0 where a degree is 0."""
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    val = np.ascontiguousarray(val, np.float32)
+    deg = np.ascontiguousarray(deg, np.float32)
+    lib = _load()
+    if lib is None:
+        with np.errstate(divide="ignore"):
+            left = np.where(deg > 0, deg ** (r - 1.0), 0.0)
+            right = np.where(deg > 0, deg ** (-r), 0.0)
+        return (left[dst] * val * right[src]).astype(np.float32)
+    out = np.empty(src.shape[0], np.float32)
+    lib.sgl_normalized_weights(src, dst, val, src.shape[0], deg, r, out)
+    return out
+
+
+def gather_rows(x: np.ndarray, idx: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """``x[idx]`` as a parallel native row gather (fallback: ``np.take``)."""
+    x = np.ascontiguousarray(x)
+    idx = np.ascontiguousarray(idx, np.int32)
+    lib = _load()
+    if lib is None:
+        return np.take(x, idx, axis=0, out=out)
+    # the C gather copies raw rows: an index out of range would read
+    # arbitrary memory where numpy raises
+    if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= x.shape[0]):
+        raise IndexError(
+            f"gather_rows: index out of range [0, {x.shape[0]}) "
+            f"(got min {int(idx.min())}, max {int(idx.max())})"
+        )
+    expect = (idx.shape[0],) + x.shape[1:]
+    if out is None:
+        out = np.empty(expect, x.dtype)
+    elif out.shape != expect or out.dtype != x.dtype or not out.flags["C_CONTIGUOUS"]:
+        raise ValueError(
+            f"gather_rows: out must be C-contiguous {expect} {x.dtype} (got {out.shape} "
+            f"{out.dtype}, contiguous={out.flags['C_CONTIGUOUS']})"
+        )
+    row_bytes = x.nbytes // max(x.shape[0], 1)
+    lib.sgl_gather_rows(
+        x.ctypes.data_as(ctypes.c_void_p), row_bytes, idx, idx.shape[0],
+        out.ctypes.data_as(ctypes.c_void_p),
+    )
+    return out
+
+
+def build_normalized_adj_host(src, dst, val, num_nodes: int, r: float = 0.5):
+    """The whole normalized-adjacency build on the host: append the self
+    loops, sum degrees, normalize, sort by dst.  Returns dst-sorted
+    ``(src, dst, w)`` numpy arrays."""
+    loop = np.arange(num_nodes, dtype=np.int32)
+    s = np.concatenate([np.asarray(src, np.int32), loop])
+    d = np.concatenate([np.asarray(dst, np.int32), loop])
+    v = np.concatenate([np.asarray(val, np.float32), np.ones(num_nodes, np.float32)])
+    deg = compute_degrees(s, v, num_nodes)
+    w = normalized_weights(s, d, v, deg, r)
+    return sort_edges_by_dst(s, d, w, num_nodes)

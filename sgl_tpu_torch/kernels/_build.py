@@ -1,5 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
+(The host C++ of the graph builder is built here too, with ``g++``:
+:func:`build_host`.)
+
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled for ``sm_90a`` (Hopper):
 
@@ -38,6 +41,9 @@ NVCC_FLAGS = [
 ]
 # every kernel source of the package; chip_smoke.py builds them all at once
 SOURCES = ("spmm_csr", "segment_reduce", "gather_sum")
+# host C++ (the native graph builder): OpenMP, no -march=native, so the
+# library runs on any x86-64 host the checkout is copied to
+GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC"]
 
 
 def nvcc_path() -> str:
@@ -99,6 +105,29 @@ def build(names: Iterable[str] = SOURCES) -> List[Path]:
                 s[0].kill()
                 s[0].wait()
     return [library_path(n) for n in names]
+
+
+def build_host(src: Path) -> Path:
+    """Build the host C++ source ``src`` with ``g++`` into
+    ``sgl_tpu_torch/_build/`` (named by a hash of the source and the flags,
+    as the kernels are) and return the library's path; raises when ``g++``
+    is missing or fails."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on $PATH; {src.name} is built from source at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {src.name} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

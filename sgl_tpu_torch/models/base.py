@@ -3,8 +3,9 @@
 * ``preprocess(graph)`` runs the training-free propagation once on the
   device and caches either the eagerly aggregated features (non-learnable
   message op; linear ones fuse into the propagation loop) or the stacked
-  ``(K+1, N, D)`` hop tensor (learnable message op).  This is the
-  reference's eager-vs-lazy split.
+  ``(K+1, N, D)`` hop tensor (learnable message op; ``(N, K+1, D)`` when
+  ``node_major`` is set before it).  This is the reference's eager-vs-lazy
+  split.
 * ``net`` is the trainable stage: ``(learnable message op ∘) base model``,
   an ``nn.Module`` whose parameters the task's optimizer owns.
 * ``batch_input(idx)`` slices the cached features for a node batch.
@@ -26,17 +27,24 @@ from sgl_tpu_torch.ops.message_ops import LEARNABLE_AGGR_TYPES, MessageOp
 
 
 class SGAPNet(nn.Module):
-    """The trainable stage-2 network: (learnable msg op ∘) base model."""
+    """The trainable stage-2 network: (learnable msg op ∘) base model.
 
-    def __init__(self, msg_op: Optional[MessageOp], base_model: nn.Module):
+    ``node_major=True`` means batch features arrive as ``(B, K, D)`` and
+    the message op reads them so (``supports_node_major``)."""
+
+    def __init__(self, msg_op: Optional[MessageOp], base_model: nn.Module, node_major: bool = False):
         super().__init__()
         self.msg_op = msg_op  # None when aggregation was eager
         self.base_model = base_model
+        self.node_major = node_major
 
     def forward(self, feats, train: bool = False, generator=None):
         h = feats
         if self.msg_op is not None:
-            h = self.msg_op(h, train=train, generator=generator)
+            if self.node_major:
+                h = self.msg_op(h, train=train, generator=generator, node_major=True)
+            else:
+                h = self.msg_op(h, train=train, generator=generator)
         return self.base_model(h, train=train, generator=generator)
 
 
@@ -72,7 +80,12 @@ class SGAPModel:
         self.pre_msg_learnable: bool = bool(
             pre_msg_op is not None and pre_msg_op.aggr_type in LEARNABLE_AGGR_TYPES
         )
-        self.processed_feature: Optional[torch.Tensor] = None  # (N, D') or (K+1, N, D)
+        # node_major=True caches the hop stack as (N, K+1, D) and runs the
+        # attention op in that layout; opt-in (set it before preprocess),
+        # for a pre_msg_op with supports_node_major.  The default is
+        # hop-major, as in sgl_tpu.
+        self.node_major: bool = False
+        self.processed_feature: Optional[torch.Tensor] = None  # (N, D') / (K+1, N, D) / (N, K+1, D)
 
     # -- stage 1: pre-propagation (training-free) --------------------------
     def preprocess(self, graph: Graph, x=None, dtype=None, device=None) -> None:
@@ -90,7 +103,10 @@ class SGAPModel:
             self.processed_feature = x.to(resolve_device(device), dtype or torch.float32)
             return
         if self.pre_msg_learnable:
-            self.processed_feature = self.pre_graph_op.propagate(graph, x, device=device)
+            hops = self.pre_graph_op.propagate(graph, x, device=device)
+            if self.node_major:
+                hops = hops.movedim(0, 1).contiguous()  # one-time (N, K+1, D)
+            self.processed_feature = hops
             return
         # linear aggregations fuse into the propagation loop: peak memory
         # O(N·D) instead of O((K+1)·N·D)
@@ -109,6 +125,7 @@ class SGAPModel:
         return SGAPNet(
             msg_op=self.pre_msg_op if self.pre_msg_learnable else None,
             base_model=self.base_model,
+            node_major=self.node_major,
         )
 
     def init(self, generator: Optional[torch.Generator] = None) -> None:
@@ -121,7 +138,7 @@ class SGAPModel:
         if self.processed_feature is None:
             raise RuntimeError("call preprocess() before training")
         idx = torch.as_tensor(idx, device=self.processed_feature.device)
-        dim = 1 if self.pre_msg_learnable else 0
+        dim = 1 if self.pre_msg_learnable and not self.node_major else 0
         return self.processed_feature.index_select(dim, idx)
 
     def apply(self, idx, train: bool = False, generator=None) -> torch.Tensor:

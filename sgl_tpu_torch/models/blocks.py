@@ -7,7 +7,8 @@ same distributions (not the same numbers: the random streams differ):
   standard deviations, scaled to variance ``1/fan_in`` — and a zero bias;
 * the MLP's layers use ``variance_scaling(2, fan_avg, uniform)`` (xavier
   uniform with ReLU gain) and zero biases;
-* ``PReLU`` is one slope, 0.25, shared across the MLP's layers.
+* ``PReLU`` is one slope, 0.25, shared across the MLP's layers;
+* ``BatchNorm`` starts at scale 1, bias 0, running mean 0 and variance 1.
 
 Every module that owns parameters has ``reset_parameters(generator)``;
 :func:`init_params` runs them all from one explicit ``torch.Generator``.
@@ -112,6 +113,40 @@ class FastDropout(nn.Module):
         return torch.where(bits < keep_q, x * (256.0 / keep_q), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class BatchNorm(nn.BatchNorm1d):
+    """Flax ``nn.BatchNorm`` over the batch axis, as an ``nn.BatchNorm1d``
+    (``weight``/``bias`` are Flax's ``scale``/``bias``; the running buffers
+    its ``batch_stats`` ``mean``/``var``).
+
+    Flax's momentum 0.99 is PyTorch's 0.01 and its epsilon is 1e-5.  In
+    train mode the batch's mean and biased variance (Flax's
+    ``E[x²] - E[x]²``) normalize ``x`` and move the running statistics;
+    PyTorch's own ``batch_norm`` would move the running variance by the
+    unbiased one, so the update is written out here.  In eval mode the
+    running statistics normalize.  Statistics are f32 for bf16 inputs too;
+    the output has the input's dtype."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.01)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        super().reset_parameters()
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x32 = x.float()
+        if train:
+            mean = x32.mean(dim=0)
+            var = torch.clamp((x32 * x32).mean(dim=0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
+
+
 class IdenticalMapping(nn.Module):
     """Identity base model for training-free pipelines."""
 
@@ -131,8 +166,9 @@ class LogisticRegression(nn.Module):
 
 
 class MultiLayerPerceptron(nn.Module):
-    """PReLU + dropout MLP (Flax param tree: ``Dense_0..Dense_{L-1}``,
-    ``PReLU_0``).
+    """PReLU + dropout (+ optional batch norm) MLP (Flax param tree:
+    ``Dense_0..Dense_{L-1}``, ``PReLU_0``, with ``bn`` also
+    ``BatchNorm_0..BatchNorm_{L-2}``).
 
     ``compute_dtype=torch.bfloat16`` runs the matmuls and activations in
     bf16 (parameters stay f32; logits come back f32)."""
@@ -144,6 +180,7 @@ class MultiLayerPerceptron(nn.Module):
         num_layers: int,
         output_dim: int,
         dropout: float = 0.5,
+        bn: bool = False,
         compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
@@ -153,6 +190,7 @@ class MultiLayerPerceptron(nn.Module):
         self.layers = nn.ModuleList(
             Dense(a, b, kernel_init="xavier_relu") for a, b in zip(dims[:-1], dims[1:])
         )
+        self.bns = nn.ModuleList(BatchNorm(hidden_dim) for _ in dims[1:-1]) if bn else None
         self.prelu = PReLU()  # single slope shared across layers, like torch nn.PReLU()
         self.dropout = FastDropout(dropout)
         self.compute_dtype = compute_dtype
@@ -161,8 +199,53 @@ class MultiLayerPerceptron(nn.Module):
         dt = self.compute_dtype
         if dt is not None:
             x = x.to(dt)
-        for layer in self.layers[:-1]:
-            x = self.prelu(layer(x, dt))
-            x = self.dropout(x, train, generator)
+        for i, layer in enumerate(self.layers[:-1]):
+            x = layer(x, dt)
+            if self.bns is not None:
+                x = self.bns[i](x, train)
+            x = self.dropout(self.prelu(x), train, generator)
         out = self.layers[-1](x, dt)
         return out.float() if dt is not None else out
+
+
+class ResMultiLayerPerceptron(nn.Module):
+    """Residual MLP, dropout first (Flax param tree: ``Dense_0..Dense_{L-1}``
+    with Flax ``Dense``'s own initializers, with ``bn`` also
+    ``BatchNorm_0..BatchNorm_{L-2}``).
+
+    dropout → Dense_0 (→ BN) → ReLU is the first residual; each middle
+    layer is dropout → Dense_i (→ BN) → ReLU, plus the residual, and its
+    ReLU output (before the add) becomes the next residual; the last is
+    dropout → Dense_{L-1}."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        hidden_dim: int,
+        num_layers: int,
+        output_dim: int,
+        dropout: float = 0.8,
+        bn: bool = False,
+    ):
+        super().__init__()
+        if num_layers < 2:
+            raise ValueError("ResMLP must have at least two layers!")
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.layers = nn.ModuleList(Dense(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.bns = nn.ModuleList(BatchNorm(hidden_dim) for _ in dims[1:-1]) if bn else None
+        self.dropout = FastDropout(dropout)
+
+    def _hidden(self, i: int, x, train: bool, generator):
+        h = self.layers[i](self.dropout(x, train, generator))
+        if self.bns is not None:
+            h = self.bns[i](h, train)
+        return torch.relu(h)
+
+    def forward(self, x, train: bool = False, generator=None):
+        x = self._hidden(0, x, train, generator)
+        residual = x
+        for i in range(1, len(self.layers) - 1):
+            h = self._hidden(i, x, train, generator)
+            x = h + residual
+            residual = h
+        return self.layers[-1](self.dropout(x, train, generator))

@@ -7,7 +7,16 @@ from sgl_tpu_torch.ops.graph_ops import (  # noqa: F401
 )
 from sgl_tpu_torch.ops.message_ops import (  # noqa: F401
     LEARNABLE_AGGR_TYPES,
+    ConcatMessageOp,
+    IterateLearnableWeightedMessageOp,
     LastMessageOp,
     LearnableWeightedMessageOp,
+    MaxMessageOp,
+    MeanMessageOp,
     MessageOp,
+    MinMessageOp,
+    OverSmoothDistanceWeightedOp,
+    ProjectedConcatMessageOp,
+    SimpleWeightedMessageOp,
+    SumMessageOp,
 )

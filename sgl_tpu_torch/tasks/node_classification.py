@@ -147,6 +147,7 @@ class NodeClassification(BaseTask):
                 )
             if acc_val > best_val:
                 best_val, best_test = acc_val, acc_test
+                self._on_best(net)
 
         acc_val, acc_test = self._postprocess(net, labels, val_idx, test_idx)
         if acc_val > best_val:
@@ -158,6 +159,10 @@ class NodeClassification(BaseTask):
             print(f"Best val: {best_val:.4f}, best test: {best_test:.4f}")
         self.net = net
         return best_test
+
+    def _on_best(self, net) -> None:
+        """Called whenever the validation accuracy improves, with the net
+        as it stands (subclasses keep best-epoch outputs)."""
 
     def _postprocess(self, net, labels, val_idx, test_idx):
         ds, model, device = self._dataset, self._model, self._device

@@ -59,9 +59,12 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
     products = {k: dict(r, launches=30) for k in ("f32", "bf16")}
     dev_results = {k: dict(r) for k in [*INSTANTIATIONS, "gather_sum"]}
     dev_launches = {k: 1 for k in dev_results}
+    zoo = {"f32": 24, "bf16": 3, "fixup_f32": 24, "fixup_bf16": 3}
     line = kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results)
+                        dev_launches, dev_results, zoo)
     kernels = line["kernels"]
+    # phase 7's launches of the CSR kernel sit beside the main path's
+    assert [(k["zoo_launches"], k["zoo_fixup_launches"]) for k in kernels[:2]] == [(24, 24), (3, 3)]
     assert len(kernels) == 11 and len({k["name"] for k in kernels}) == 11
     for k in kernels:
         assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -32,7 +32,7 @@ from sgl_tpu_torch.kernels import (
 )
 from sgl_tpu_torch.kernels.segment_reduce import COLUMN_WINDOW, INSTANTIATIONS, TILE_MESSAGES, tiling
 from sgl_tpu_torch.kernels.spmm_csr import SPLIT_NNZ, _make_plan
-from sgl_tpu_torch.models import SGC
+from sgl_tpu_torch.models import SGC, SIGN
 from sgl_tpu_torch.tasks import NodeClassification
 
 pytestmark = pytest.mark.cuda
@@ -110,6 +110,22 @@ def test_node_classification_defaults_to_cuda(cuda):
     assert model.processed_feature.is_cuda
     assert spmm_csr.launches["f32"] >= before + 3
     assert task.test_acc >= 0.8
+
+
+@pytest.mark.parametrize("d", [32, 37])  # full packets, scalar
+def test_sign_preprocess_on_the_card_matches_the_cpu(cuda, d):
+    """A zoo model's pre-propagation through the CSR kernel, against the
+    port's CPU path on the same graph: SIGN's concat of 4 hops."""
+    g = random_power_law_graph(4000, 10, d, seed=5)
+    models = {dev: SIGN(3, d, 8, 32, 2) for dev in ("cuda", "cpu")}
+    before = spmm_csr.launches["f32"]
+    for dev, model in models.items():
+        model.preprocess(g, device=dev)
+    assert spmm_csr.launches["f32"] == before + 3
+    got, want = models["cuda"].processed_feature, models["cpu"].processed_feature
+    assert got.is_cuda and got.shape == want.shape == (4000, 4 * d)
+    err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    assert err <= TOL[torch.float32], err
 
 
 def _parts(cuda, d, n_parts=8, seed=3):

@@ -16,6 +16,8 @@ MODULES = [
     "sgl_tpu_torch.examples.products_scale_demo", "sgl_tpu_torch.dev.exp_spmm",
     "sgl_tpu_torch.dev.exp_gather_dma", "sgl_tpu_torch.dev.exp_acc_alias",
     "sgl_tpu_torch.dev.tune_spmm_csr", "sgl_tpu_torch.dev.tune_segment_reduce",
+    "sgl_tpu_torch.graph.native", "sgl_tpu_torch.graph.transforms", "sgl_tpu_torch.datasets.planetoid",
+    "sgl_tpu_torch.datasets.utils", "sgl_tpu_torch.models.homo", "sgl_tpu_torch.ops.message_ops",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
 ]
