@@ -68,10 +68,29 @@ Phases; any failure raises and the script exits non-zero:
    native graph builder (built with ``g++``; the run fails without it), and on the
    products graph of phase 5 the host normalization against the card's,
    both timed;
-8. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
+8. the label and NAFS tasks on the card, at the main path's dataset:
+   first each task's device work on a small graph (``PlantedPartition``)
+   against the port's CPU path (label propagation, Correct & Smooth, the
+   label-reuse features, the NAFS sweep, KMeans from the same centers, the
+   NAFS link AUC and AP); then, the launch counters set to 0 just before
+   each task and read just after and held to ``expected_label_launches``,
+   ``NodeClassificationWithCorrectAndSmooth`` (SGC(3)),
+   ``NodeClassificationWithLabelUse`` (SGC(2) at width 128 + 64), the
+   ``Predictor`` of the C&S task saved, loaded and asked for 1, 7, 1000 and
+   all ids, ``NodeClusteringNAFS`` and ``LinkPredictionNAFS`` (20 hops, six
+   r, KMeans on the card) and ``LinkPredictionGAE`` (SGC(3) to width 64);
+   one hop's KMeans alone; K1 at the label widths (3, 47, 64) against its
+   twin, timed beside its bound and ``torch.sparse.mm``; K1's gradient
+   (one forward, one backward launch) against the CPU path and a float64
+   ``Aᵀ(2Ax)``, both kernels timed; NAFS's product at R = 6, D = 128: R
+   launches of K1 against the plain one-gather form, beside the bound of
+   one R·D-wide pass;
+9. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
    (for K1–K4 and D2–D6 also the fix-up's; for K1/K2 also phase 7's, as
-   ``zoo_launches``), errors and times beside its bound;
-9. print ``{"ok": true, "device": {...}}`` as the last line.
+   ``zoo_launches``; for K1 also phase 8's, as ``label_launches``, with its
+   label widths, its gradient and the NAFS product), errors and times
+   beside its bound;
+10. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
 to it, and exits non-zero without printing a result when either is missing.
@@ -87,6 +106,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 # CUDA-event medians, (max abs, max rel) errors and the H100 SXM's published
@@ -1023,6 +1043,393 @@ def zoo_phase(dev, products_graph):
     return launches
 
 
+# -- phase 8: the label and NAFS tasks ------------------------------------------
+
+# tests/test_tasks.py:38-49 (C&S) and :119-131 (label use and reuse), at the
+# main path's dataset; C&S over SGC(3), label reuse over SGC(2) at width
+# num_features + num_classes
+CS_SETTINGS = dict(lr=0.1, weight_decay=5e-5, epochs=15, num_correct_layers=10, correct_alpha=0.8,
+                   num_smooth_layers=10, smooth_alpha=0.8)
+CS_STEPS = 3
+LABEL_USE_SETTINGS = dict(lr=0.1, weight_decay=5e-5, epochs=12, mask_rate=0.5, use_labels=True,
+                          label_iters=1, reuse_start_epoch=5)
+LABEL_USE_STEPS = 2
+# the NAFS tasks' defaults (hops 0..19, six r) with four KMeans seedings
+NAFS_HOPS, NAFS_N_INIT, NAFS_METHOD = 20, 4, "mean"
+NAFS_R_LIST = (0.5, 0.4, 0.3, 0.2, 0.1, 0.0)
+# the GAE: an SGC(3) encoder of width 64, 20 epochs
+GAE_STEPS, GAE_WIDTH, GAE_SETTINGS = 3, 64, dict(lr=0.01, weight_decay=5e-5, epochs=20)
+PREDICT_SIZES = (1, 7, 1000)
+# K1 at the label widths (pubmed's 3 classes, an odd width, the main path's 64)
+LABEL_WIDTHS = (3, 47, 64)
+# the small graph's AUC and AP, card against the CPU path
+AUC_TOL = 1e-6
+
+
+def expected_label_launches() -> dict:
+    """K1 (f32) launches of each phase-8 task on the card, from its
+    settings (``PERF.md`` §6 states them)."""
+    s = LABEL_USE_SETTINGS
+    reuse_epochs = sum(e > s["reuse_start_epoch"] for e in range(s["epochs"]))
+    nafs = (NAFS_HOPS - 1) * len(NAFS_R_LIST)  # the sweep's last hop is 19
+    return {
+        "C&S": CS_STEPS + CS_SETTINGS["num_correct_layers"] + CS_SETTINGS["num_smooth_layers"],
+        "label reuse": LABEL_USE_STEPS * (1 + s["epochs"] + s["label_iters"] * reuse_epochs),
+        "predictor": 0,
+        "NAFS clustering": nafs,
+        "NAFS link prediction": nafs,
+        "GAE": GAE_STEPS,
+    }
+
+
+def nafs_bound(n: int, e: int, r: int, d: int) -> dict:
+    """The least time of the R products in one R·D-wide pass: ``4(N+1) +
+    4E + 4E·R + 2·N·R·D·4`` bytes (the column indices once, R weights a
+    nonzero, x and y once each at width R·D), or ``2·E·R·D`` f32
+    operations, whichever is longer."""
+    nbytes = 4 * (n + 1) + 4 * e + 4 * e * r + 2 * n * r * d * 4
+    b = bound(nbytes, e, r * d)
+    return dict(b, nbytes=nbytes)
+
+
+def run_counted(name: str, fn, want: dict):
+    """``fn()`` with the CSR kernel's counters set to 0 just before and read
+    just after; checks the f32 launches against ``want[name]`` (every
+    product on these graphs has a long row, so each has its fix-up), and
+    returns ``(result, seconds, launches)``."""
+    from sgl_tpu_torch.kernels import spmm_csr
+
+    reset_launches()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts, fixups = dict(spmm_csr.launches), dict(spmm_csr.fixup_launches)
+    expect = {k: (want[name] if k == "f32" else 0) for k in counts}
+    check(counts == expect, f"[8] {name}: launches {counts}, expected {expect}")
+    check(fixups == expect, f"[8] {name}: fix-up launches {fixups}, expected {expect}")
+    return out, seconds, counts["f32"]
+
+
+def label_small_graph(dev) -> None:
+    """Every phase-8 task's device work on a small graph, on the card
+    against the port's CPU path."""
+    from sgl_tpu_torch.datasets import PlantedPartition
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.models import SGC
+    from sgl_tpu_torch.tasks import (
+        KMeans, LinkPredictionGAE, LinkPredictionNAFS, NodeClustering, mask_test_edges, nafs_smooth_sweep,
+    )
+    from sgl_tpu_torch.tasks.node_classification_with_label_use import reuse_labels
+    from sgl_tpu_torch.tasks.utils import add_labels
+    from sgl_tpu_torch.tricks import CorrectAndSmooth, label_propagation
+
+    ds = PlantedPartition()
+    cpu = torch.device("cpu")
+    n, c = ds.num_node, ds.num_classes
+    y = torch.as_tensor(np.asarray(ds.y).reshape(-1))
+    train = np.asarray(ds.train_idx)
+    gen = torch.Generator().manual_seed(0)
+    y_soft = torch.softmax(torch.randn(n, c, generator=gen), dim=1)
+    errs = {}
+
+    def both(name, fn):
+        got, want = fn(dev), fn(cpu)
+        for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            check(a.is_cuda, f"[8] small graph {name}: not on the card")
+            errs[name] = max(errs.get(name, 0.0), rel_err(a.cpu(), b)[1])
+        check(errs[name] <= TOL["f32"], f"[8] small graph {name}: card vs CPU {errs[name]:.3e}")
+
+    def adj(device, r=0.5):
+        return symmetric_normalized_weights(ds.graph, r=r, device=device)
+
+    both("label propagation", lambda v: label_propagation(y.to(v), adj(v), 10, 0.9))
+    both("label propagation, soft, masked",
+         lambda v: label_propagation(y_soft.to(v), adj(v), 10, 0.9, mask=train))
+
+    def cs(v):
+        post = CorrectAndSmooth(10, 0.8, 10, 0.8)
+        out = post.correct(y_soft.to(v), y.to(v), train, adj(v, 0.3))
+        return out, post.smooth(out, y.to(v), train, adj(v))
+
+    both("C&S correct, smooth", cs)
+
+    features = add_labels(ds.x, y.numpy(), train[::2], c)
+    unlabeled = np.concatenate([train[1::2], ds.val_idx, ds.test_idx])
+    init = SGC(2, ds.num_features + c, c)
+    init.init(torch.Generator().manual_seed(0))
+    weights = init.net.state_dict()
+
+    def reuse(v):
+        model = SGC(2, ds.num_features + c, c)
+        model.net.load_state_dict(weights)
+        model.net.to(v)
+        model.preprocess(ds.graph, features.copy(), device=v)
+        feat = features.copy()
+        reuse_labels(model, model.net, ds.graph, feat, unlabeled, c, v)
+        return model.processed_feature
+
+    both("label reuse features", reuse)
+    both("NAFS sweep", lambda v: tuple(f for _, f in nafs_smooth_sweep(
+        ds.graph, ds.x, [0, 3, 7], NAFS_R_LIST, NAFS_METHOD, device=v)))
+    feats = torch.as_tensor(ds.x)
+    km_card, km_cpu = (KMeans(c).fit(feats.to(v), init=feats[:c].to(v)).labels_ for v in (dev, cpu))
+    check(km_card.is_cuda and torch.equal(km_card.cpu(), km_cpu),
+          "[8] small graph KMeans: card and CPU labels differ from the same centers")
+
+    # the trained tasks: their propagated features (their seeding and
+    # dropout draw from each device's own generator)
+    scores = {}
+
+    def trained(name, make_task, kind):
+        def propagated(v):
+            model = SGC(2, ds.num_features, 16 if kind == "gae" else c)
+            task = make_task(model, v)
+            scores.setdefault(name, []).append(task.test_roc_auc if kind == "gae" else task.nmi)
+            return model.processed_feature
+        both(name, propagated)
+
+    trained("GAE features", lambda m, v: LinkPredictionGAE(
+        ds, m, lr=0.01, weight_decay=5e-5, epochs=5, verbose=False, device=v), "gae")
+    trained("NodeClustering features", lambda m, v: NodeClustering(
+        ds, m, lr=0.01, weight_decay=5e-5, epochs=2, n_init=2, verbose=False, device=v), "clustering")
+    split = [mask_test_edges(ds.graph, seed=s) for s in (0, 0)]
+    check(all(np.array_equal(a, b) for a, b in zip(split[0][1:], split[1][1:])),
+          "[8] small graph mask_test_edges: two splits of one seed differ")
+    kw = dict(hops=[0, 3, 7], method=NAFS_METHOD, r_list=NAFS_R_LIST, verbose=False)
+    auc_card, auc_cpu = ((t.test_roc_auc, t.test_avg_prec, t.best_hop_roc_auc, t.best_hop_avg_prec)
+                         for t in (LinkPredictionNAFS(ds, device=v, **kw) for v in (dev, cpu)))
+    d_auc = max(abs(a - b) for a, b in zip(auc_card[:2], auc_cpu[:2]))
+    check(d_auc <= AUC_TOL and auc_card[2:] == auc_cpu[2:],
+          f"[8] small graph NAFS link prediction: card {auc_card}, CPU {auc_cpu}")
+    log(f"[8] small graph ({n} nodes): card vs the CPU path, max rel err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (limit {TOL['f32']:.0e}); KMeans from the same centers: the same labels; "
+        f"mask_test_edges: the same arrays; NAFS link AUC, AP, best hops card {auc_card}, CPU "
+        f"{auc_cpu} (|diff| {d_auc:.3e}, limit {AUC_TOL:.0e}); GAE test AUC (card, CPU) "
+        f"{scores['GAE features']}, NodeClustering nmi (card, CPU) {scores['NodeClustering features']}")
+
+
+def label_width_probe(adj, dev) -> dict:
+    """K1 at the label widths on the main path's adjacency: against its
+    twin, timed beside its bound and ``torch.sparse.mm``."""
+    from sgl_tpu_torch.kernels import spmm_csr, spmm_csr_reference
+
+    out = {}
+    gen = torch.Generator(dev).manual_seed(3)
+    for d in LABEL_WIDTHS:
+        x = torch.rand(adj.num_nodes, d, device=dev, generator=gen)
+        abs_err, rel, rel64 = compare(adj, x, "f32", f"the main-path shape, d={d}")
+        ms = time_ms(lambda: spmm_csr(adj, x))
+        plain_ms = time_ms(lambda: spmm_csr_reference(adj, x), warmup=1, iters=3)
+        library_ms, lib_note = library_time(adj, x, spmm_csr_reference(adj, x))
+        nbytes = 4 * (adj.num_nodes + 1) + 8 * adj.nnz + 2 * adj.num_nodes * d * 4
+        b = bound(nbytes, adj.nnz, d)
+        out[d] = dict(max_abs_err=abs_err, max_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      **b)
+        log(f"[8] spmm_csr f32 at d={d} (main-path adjacency, {adj.nnz} nonzeros): max rel err {rel:.3e} "
+            f"(limit {TOL['f32']:.0e}; vs an f64 sum {rel64:.3e}); kernel {ms:.4f} ms, plain twin "
+            f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB, {b['bound_by']}), "
+            f"{b['bound_ms'] / ms:.1%} of it; library {lib_note}")
+    return out
+
+
+def gradient_probe(ds, dev) -> dict:
+    """K1's gradient at the main path's shape: ``sum(spmm(adj, x)**2)``'s
+    gradient against the CPU path and a float64 ``Aᵀ(2Ax)``, one forward
+    and one backward launch; the forward and backward kernels timed."""
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.kernels import prepare_csr, spmm, spmm_csr, spmm_csr_reference, transposed
+
+    adj = prepare_csr(symmetric_normalized_weights(ds.graph, device=dev))
+    x = torch.as_tensor(ds.x, device=dev).requires_grad_(True)
+    reset_launches()
+    y = spmm(adj, x)
+    forward = dict(spmm_csr.launches)
+    (y ** 2).sum().backward()
+    torch.cuda.synchronize()
+    both = dict(spmm_csr.launches)
+    check(forward["f32"] == 1 and both["f32"] == 2 and sum(both.values()) == 2,
+          f"[8] gradient: launches after the forward {forward}, after the backward {both}")
+    grad = x.grad
+    # the CPU path of the same call (the CSR's plain twin, forward and
+    # backward, in the kernel's order), and the CPU's edge-list path, whose
+    # sequential f32 sums over hub rows are shown, not held
+    cpu_grads = []
+    for layout in (prepare_csr, lambda a: a):
+        xc = torch.as_tensor(ds.x).requires_grad_(True)
+        (spmm(layout(symmetric_normalized_weights(ds.graph, device="cpu")), xc) ** 2).sum().backward()
+        cpu_grads.append(xc.grad)
+    rows = torch.repeat_interleave(torch.arange(adj.num_nodes, device=dev), torch.diff(adj.rowptr.long()))
+    val, col = adj.val.double()[:, None], adj.col.long()
+    y64 = torch.zeros(x.shape, dtype=torch.float64, device=dev).index_add_(
+        0, rows, x.detach().double()[col] * val)
+    dx64 = torch.zeros_like(y64).index_add_(0, col, 2 * y64[rows] * val)
+    err_cpu = rel_err(grad.cpu(), cpu_grads[0])
+    err64 = rel_err(grad, dx64)[1]
+    edge_list = (rel_err(cpu_grads[1], cpu_grads[0])[1], rel_err(cpu_grads[1].to(dev), dx64)[1])
+    del y64, dx64, rows, val, col
+    check(torch.isfinite(grad).all().item() and err_cpu[1] <= TOL["f32"] and err64 <= F64_TOL,
+          f"[8] gradient: vs the CPU path {err_cpu[1]:.3e}, vs float64 {err64:.3e}")
+    at = transposed(adj)
+    g = (2 * y).detach()
+    out = {}
+    for name, csr, inp in (("forward", adj, x.detach()), ("backward", at, g)):
+        ms = time_ms(lambda: spmm_csr(csr, inp))
+        plain_ms = time_ms(lambda: spmm_csr_reference(csr, inp), warmup=1, iters=3)
+        library_ms, lib_note = library_time(csr, inp, spmm_csr_reference(csr, inp))
+        nbytes = 4 * (csr.num_nodes + 1) + 8 * csr.nnz + 2 * csr.num_nodes * inp.shape[1] * 4
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, csr.nnz, inp.shape[1]))
+        log(f"[8] K1 {name} ({'Aᵀ' if name == 'backward' else 'A'}: {describe_plan(csr.plan, inp.shape[1])}): "
+            f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound {out[name]['bound_ms']:.4f} ms; "
+            f"library {lib_note}")
+    out["backward"].update(launches=both["f32"] - forward["f32"], max_abs_err=err_cpu[0], max_rel_err=err_cpu[1])
+    log(f"[8] K1 gradient of sum(spmm(adj, x)**2) at the main-path shape: launches forward {forward['f32']}, "
+        f"backward {both['f32'] - forward['f32']}; vs the CPU path (the CSR's twin) max rel err "
+        f"{err_cpu[1]:.3e} (limit {TOL['f32']:.0e}); vs a float64 Aᵀ(2Ax) {err64:.3e} (limit {F64_TOL:.0e}); "
+        f"the CPU's edge-list path is {edge_list[0]:.3e} from the twin's and {edge_list[1]:.3e} from float64")
+    return out
+
+
+def multi_weight_probe(ds, dev) -> dict:
+    """NAFS's product at R = 6, D = 128: R launches of K1 (``spmm_multi``)
+    against the plain one-gather form on the card, beside the bytes bound
+    of one R·D-wide pass and R times the one-r bound."""
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.kernels import prepare_csr, spmm_csr, spmm_multi, spmm_multi_gather
+
+    adjs = [symmetric_normalized_weights(ds.graph, r=r, device=dev) for r in NAFS_R_LIST]
+    csrs = [prepare_csr(a) for a in adjs]
+    r, n, d = len(adjs), ds.num_node, ds.num_features
+    h = torch.rand(r, n, d, device=dev, generator=torch.Generator(dev).manual_seed(4))
+    # both against a float64 sum per r: the one-gather form adds each row's
+    # messages in one sequential f32 order, which a hub row's length shows
+    errs = {"per r": 0.0, "one gather": 0.0}
+    for name, out in (("per r", spmm_multi(csrs, h)), ("one gather", spmm_multi_gather(adjs, h))):
+        for i, csr in enumerate(csrs):
+            errs[name] = max(errs[name], rel_err(out[i], f64_sum(csr, h[i]))[1])
+        del out
+    check(errs["per r"] <= F64_TOL, f"[8] spmm_multi vs a float64 sum: {errs['per r']:.3e}")
+    per_r = time_ms(lambda: [spmm_csr(c, h[i]) for i, c in enumerate(csrs)])
+    multi = time_ms(lambda: spmm_multi(csrs, h))
+    gather = time_ms(lambda: spmm_multi_gather(adjs, h), warmup=1, iters=3)
+    torch.cuda.empty_cache()
+    e = csrs[0].nnz
+    one_pass = nafs_bound(n, e, r, d)
+    per_r_bound = r * bound(4 * (n + 1) + 8 * e + 2 * n * d * 4, e, d)["bound_ms"]
+    log(f"[8] NAFS product, R={r}, D={d}, N={n}, E={e}: {r} x K1 {per_r:.4f} ms (spmm_multi with its stack "
+        f"{multi:.4f} ms); the plain one-gather form {gather:.4f} ms; bound of one R·D-wide pass "
+        f"{one_pass['bound_ms']:.4f} ms ({one_pass['nbytes'] / 1e6:.1f} MB), R x the one-r bound "
+        f"{per_r_bound:.4f} ms; vs a float64 sum per r: spmm_multi {errs['per r']:.3e} (limit "
+        f"{F64_TOL:.0e}), the one-gather form {errs['one gather']:.3e}")
+    return dict(per_r_ms=per_r, multi_ms=multi, gather_ms=gather, bound_ms=one_pass["bound_ms"],
+                per_r_bound_ms=per_r_bound)
+
+
+def label_phase(dev) -> dict:
+    """The label and NAFS tasks through the user's entry points on the card
+    (section 8 of the module docstring).  Returns the CSR kernel's launches
+    summed over the tasks, and the probes' numbers for the kernels line."""
+    from sgl_tpu_torch.datasets import SyntheticPowerLaw
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.kernels import prepare_csr
+    from sgl_tpu_torch.models import SGC
+    from sgl_tpu_torch.tasks import (
+        KMeans, LinkPredictionGAE, LinkPredictionNAFS, NodeClassificationWithCorrectAndSmooth,
+        NodeClassificationWithLabelUse, NodeClusteringNAFS, Predictor, predictor_from_task,
+    )
+    from sgl_tpu_torch.tasks.utils import make_logits_fn
+
+    label_small_graph(dev)
+    ds = SyntheticPowerLaw(**ZOO_DATASET)
+    d, c = ds.num_features, ds.num_classes
+    want = expected_label_launches()
+    seconds, launches = {}, {}
+
+    def run(name, fn):
+        out, seconds[name], launches[name] = run_counted(name, fn, want)
+        return out
+
+    cs = run("C&S", lambda: NodeClassificationWithCorrectAndSmooth(
+        ds, SGC(CS_STEPS, d, c), verbose=False, **CS_SETTINGS))
+    check(cs._best_y_soft.is_cuda and 0.0 <= cs.test_acc <= 1.0, f"[8] C&S: test acc {cs.test_acc}")
+    log(f"[8] C&S (SGC({CS_STEPS}), {CS_SETTINGS}): {seconds['C&S']:.4f} s, {launches['C&S']} K1 launches "
+        f"(expected {want['C&S']}), test acc {cs.test_acc:.4f}")
+
+    lu = run("label reuse", lambda: NodeClassificationWithLabelUse(
+        ds, SGC(LABEL_USE_STEPS, d + c, c), verbose=False, **LABEL_USE_SETTINGS))
+    check(0.0 <= lu.test_acc <= 1.0, f"[8] label reuse: test acc {lu.test_acc}")
+    log(f"[8] label use and reuse (SGC({LABEL_USE_STEPS}) at width {d} + {c}, {LABEL_USE_SETTINGS}): "
+        f"{seconds['label reuse']:.4f} s, {launches['label reuse']} K1 launches (expected "
+        f"{want['label reuse']}), propagation s an epoch {[round(s, 4) for s in lu.propagate_seconds]}, "
+        f"test acc {lu.test_acc:.4f}")
+
+    all_idx = torch.arange(ds.num_node, device=dev)
+    logits = make_logits_fn(cs.net)(cs._model.batch_input(all_idx)).cpu().numpy()
+
+    def serve():
+        with tempfile.TemporaryDirectory() as tmp:
+            predictor_from_task(cs).save(f"{tmp}/predictor.pt")
+            loaded = Predictor.load(f"{tmp}/predictor.pt")  # in place of a fresh process
+        rng = np.random.default_rng(0)
+        requests = [rng.choice(ds.num_node, k, replace=False) for k in PREDICT_SIZES] + [np.arange(ds.num_node)]
+        return [(ids, loaded.predict(ids)) for ids in requests]
+
+    served = run("predictor", serve)
+    scale = np.abs(logits).max()
+    pred_err = max(np.abs(out - logits[ids]).max() / scale for ids, out in served)
+    exact = all(np.array_equal(out, logits[ids]) for ids, out in served)
+    check(pred_err <= TOL["f32"], f"[8] predictor: vs the task's logits {pred_err:.3e}")
+    log(f"[8] Predictor of the C&S task: saved, loaded and asked for {[len(i) for i, _ in served]} ids in "
+        f"{seconds['predictor']:.4f} s; vs the task's logits max rel err {pred_err:.3e} "
+        f"(limit {TOL['f32']:.0e}), bit-equal: {exact}")
+
+    clus = run("NAFS clustering", lambda: NodeClusteringNAFS(
+        ds, hops=NAFS_HOPS, method=NAFS_METHOD, n_init=NAFS_N_INIT, r_list=NAFS_R_LIST, verbose=False))
+    km_s = clus.kmeans_seconds
+    check(len(km_s) == NAFS_HOPS and 0.0 <= clus.nmi <= 1.0, f"[8] NAFS clustering: nmi {clus.nmi}")
+    log(f"[8] NodeClusteringNAFS (hops 0..{NAFS_HOPS - 1}, {NAFS_METHOD}, r {NAFS_R_LIST}, n_init "
+        f"{NAFS_N_INIT}): {seconds['NAFS clustering']:.4f} s, {launches['NAFS clustering']} K1 launches "
+        f"(expected {want['NAFS clustering']}); KMeans s a hop {[round(s, 4) for s in km_s]} (median "
+        f"{statistics.median(km_s):.4f}); best acc {clus.acc:.4f} (hop {clus.best_hop_acc}), nmi "
+        f"{clus.nmi:.4f} (hop {clus.best_hop_nmi}), ari {clus.adjscore:.4f}")
+
+    link = run("NAFS link prediction", lambda: LinkPredictionNAFS(
+        ds, hops=NAFS_HOPS, method=NAFS_METHOD, r_list=NAFS_R_LIST, verbose=False))
+    check(0.0 <= link.test_roc_auc <= 1.0, f"[8] NAFS link prediction: AUC {link.test_roc_auc}")
+    log(f"[8] LinkPredictionNAFS: {seconds['NAFS link prediction']:.4f} s (mask_test_edges on the host "
+        f"{link.split_seconds:.4f} s), {launches['NAFS link prediction']} K1 launches (expected "
+        f"{want['NAFS link prediction']}); best AUC {link.test_roc_auc:.4f} (hop {link.best_hop_roc_auc}), "
+        f"AP {link.test_avg_prec:.4f} (hop {link.best_hop_avg_prec})")
+
+    gae = run("GAE", lambda: LinkPredictionGAE(ds, SGC(GAE_STEPS, d, GAE_WIDTH), verbose=False, **GAE_SETTINGS))
+    check(0.0 <= gae.test_roc_auc <= 1.0, f"[8] GAE: AUC {gae.test_roc_auc}")
+    log(f"[8] LinkPredictionGAE (SGC({GAE_STEPS}) to width {GAE_WIDTH}, {GAE_SETTINGS}): {seconds['GAE']:.4f} s "
+        f"(mask_test_edges {gae.split_seconds:.4f} s, preprocess {gae.preprocess_seconds:.4f} s), "
+        f"{launches['GAE']} K1 launches (expected {want['GAE']}); test AUC {gae.test_roc_auc:.4f}, "
+        f"AP {gae.test_avg_prec:.4f}")
+
+    # KMeans of one hop on the card, alone: the main path's features
+    feats = torch.as_tensor(ds.x, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    km = KMeans(c, n_init=NAFS_N_INIT, random_state=0).fit(feats)
+    torch.cuda.synchronize()
+    km_one = time.perf_counter() - t
+    check(km.labels_.is_cuda and km.cluster_centers_.shape == (c, d), "[8] KMeans did not run on the card")
+    log(f"[8] KMeans({c}, n_init {NAFS_N_INIT}) of {tuple(feats.shape)} on the card: {km_one:.4f} s, "
+        f"{km.n_iter_} Lloyd iterations in the kept run, inertia {km.inertia_:.6g}")
+    log(f"[8] tasks (s, K1 launches): " + ", ".join(f"{k} ({seconds[k]:.4f}, {launches[k]})" for k in seconds))
+
+    adj = prepare_csr(symmetric_normalized_weights(ds.graph, device=dev))
+    widths = label_width_probe(adj, dev)
+    grad = gradient_probe(ds, dev)
+    multi = multi_weight_probe(ds, dev)
+    total = sum(launches.values())
+    return dict(launches=total, fixup_launches=total, widths=widths, gradient=grad, multi=multi,
+                tasks={k: dict(seconds=seconds[k], launches=launches[k]) for k in seconds})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs one GPU", file=sys.stderr)
@@ -1078,8 +1485,9 @@ def main() -> int:
     products, products_graph = phase("5", products_phase, dev)
     dev_launches, dev_results = phase("6", dev_phase, dev)
     zoo_launches = phase("7", zoo_phase, dev, products_graph)
+    label = phase("8", label_phase, dev)
     print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products,
-                                  dev_launches, dev_results, zoo_launches)))
+                                  dev_launches, dev_results, zoo_launches, label)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
@@ -1087,7 +1495,7 @@ def main() -> int:
 
 
 def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
-                 zoo_launches) -> dict:
+                 zoo_launches, label) -> dict:
     kernels = []
     for key in ("f32", "bf16"):
         r = bench[key]
@@ -1102,6 +1510,13 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": "bench",
         })
+    # phase 8, the label and NAFS tasks (f32 only), apart from the main path:
+    # their launches, K1 at the label widths and K1's gradient at the main
+    # path's shape, each with its own times and bound
+    k1 = kernels[0]
+    k1.update(label_launches=label["launches"], label_fixup_launches=label["fixup_launches"],
+              label_widths={str(d): r for d, r in label["widths"].items()},
+              gradient=label["gradient"], nafs_product=label["multi"])
     for key in ("f32", "bf16"):
         p, sb = products[key], stream_bench[key]
         kernels.append({

@@ -43,8 +43,9 @@ the parts buy no memory and exist to carry K3/K4 over:
 ``spmm_csr.launches`` counts products by instantiation (one first-pass
 launch each): ``"f32"``, ``"bf16"``, ``"acc_f32"``, ``"acc_bf16"``;
 ``spmm_csr.fixup_launches`` counts the second-pass launches, made only
-when the plan has a long row.  No gradient: propagation is training-free
-and runs under ``no_grad``.
+when the plan has a long row.  ``spmm_csr`` itself records no gradient;
+``sparse.spmm`` wraps it in K1's VJP, ``dx = Aᵀ g`` on
+:func:`transposed`, the CSR of ``Aᵀ`` (:func:`transpose_csr`).
 """
 
 from __future__ import annotations
@@ -140,7 +141,8 @@ class CsrAdj:
 
     ``rowptr`` int32 ``[N+1]``; ``col`` int32 ``[nnz]`` (the edge's source);
     ``val`` f32 ``[nnz]`` (normalized weight, never 0); ``plan`` the cut of
-    its long rows (:class:`SplitPlan`; built on first use when missing).
+    its long rows (:class:`SplitPlan`; built on first use when missing);
+    ``t`` the CSR of its transpose, built by :func:`transposed` on first use.
     """
 
     rowptr: torch.Tensor
@@ -148,6 +150,7 @@ class CsrAdj:
     val: torch.Tensor
     num_nodes: int
     plan: Optional[SplitPlan] = dataclasses.field(default=None, compare=False, repr=False)
+    t: Optional["CsrAdj"] = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def nnz(self) -> int:
@@ -180,6 +183,32 @@ def prepare_csr(adj: SparseAdj) -> CsrAdj:
         n,
         _make_plan(rowptr),
     )
+
+
+def transpose_csr(adj: CsrAdj) -> CsrAdj:
+    """The dst-CSR of ``Aᵀ``, with its own plan, on ``adj``'s device.
+
+    Row ``c`` of ``Aᵀ`` holds the nonzeros of column ``c`` of ``A``: a
+    stable sort of the nonzeros by column keeps them in ``A``'s row order.
+    Nothing assumes symmetry: ``symmetric_normalized_weights`` with
+    ``r != 0.5`` gives ``Aᵀ`` the pattern of ``A`` but other values.
+    """
+    rows = torch.repeat_interleave(
+        torch.arange(adj.num_nodes, dtype=torch.int32, device=adj.device),
+        torch.diff(adj.rowptr.long()), output_size=adj.nnz,
+    )
+    order = torch.argsort(adj.col, stable=True)
+    counts = torch.bincount(adj.col.long(), minlength=adj.num_nodes)
+    rowptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    return CsrAdj(rowptr, rows[order].contiguous(), adj.val[order].contiguous(), adj.num_nodes,
+                  _make_plan(rowptr))
+
+
+def transposed(adj: CsrAdj) -> CsrAdj:
+    """``adj``'s :func:`transpose_csr`, built on first use and kept with it."""
+    if adj.t is None:
+        object.__setattr__(adj, "t", transpose_csr(adj))
+    return adj.t
 
 
 def _split_sum_f32(rowptr, col, val, num_rows: int, plan: SplitPlan, x: torch.Tensor) -> torch.Tensor:

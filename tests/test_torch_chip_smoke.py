@@ -3,7 +3,14 @@
 import pytest
 import torch
 
-from chip_smoke import kernels_line, ptxas_summary, segment_bound
+from chip_smoke import (
+    LABEL_WIDTHS,
+    expected_label_launches,
+    kernels_line,
+    nafs_bound,
+    ptxas_summary,
+    segment_bound,
+)
 from sgl_tpu_torch.kernels.segment_reduce import INSTANTIATIONS
 
 # ``nvcc -Xptxas -v`` output for two entries of the CSR kernel, one of them
@@ -60,11 +67,21 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
     dev_results = {k: dict(r) for k in [*INSTANTIATIONS, "gather_sum"]}
     dev_launches = {k: 1 for k in dev_results}
     zoo = {"f32": 24, "bf16": 3, "fixup_f32": 24, "fixup_bf16": 3}
+    probe = dict(ms=1.0, plain_ms=2.0, bound_ms=0.5, bound_by="bytes", library_ms=3.0)
+    label = dict(launches=292, fixup_launches=292, widths={d: dict(probe, max_abs_err=0.0, max_rel_err=0.0)
+                                                           for d in LABEL_WIDTHS},
+                 gradient={"forward": dict(probe), "backward": dict(probe, launches=1)},
+                 multi=dict(per_r_ms=1.0, multi_ms=1.1, gather_ms=9.0, bound_ms=0.2, per_r_bound_ms=0.21))
     line = kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo)
+                        dev_launches, dev_results, zoo, label)
     kernels = line["kernels"]
     # phase 7's launches of the CSR kernel sit beside the main path's
     assert [(k["zoo_launches"], k["zoo_fixup_launches"]) for k in kernels[:2]] == [(24, 24), (3, 3)]
+    # phase 8's on K1 (f32) alone, with its label widths and its gradient
+    assert kernels[0]["label_launches"] == 292 and "label_launches" not in kernels[1]
+    assert set(kernels[0]["label_widths"]) == {"3", "47", "64"}
+    assert kernels[0]["gradient"]["backward"]["launches"] == 1
+    assert kernels[0]["nafs_product"]["per_r_ms"] == 1.0
     assert len(kernels) == 11 and len({k["name"] for k in kernels}) == 11
     for k in kernels:
         assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -72,3 +89,22 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
         assert k["route"] == "cuda" and k["launches"] > 0
     assert {k["replaces"].split(":")[0] for k in kernels[4:]} == {
         "dev/exp_acc_alias.py", "dev/exp_spmm.py", "dev/exp_gather_dma.py"}
+
+
+def test_expected_label_launches_follow_the_task_settings():
+    """C&S: SGC(3)'s 3 hops, 10 correct and 10 smooth layers; label reuse:
+    SGC(2) on the first features, on each of 12 epochs, and once more on
+    each of the 6 epochs after the 5th; NAFS: hops 1..19 for six r; GAE:
+    SGC(3) on the training graph."""
+    assert expected_label_launches() == {
+        "C&S": 23, "label reuse": 38, "predictor": 0, "NAFS clustering": 114,
+        "NAFS link prediction": 114, "GAE": 3,
+    }
+
+
+def test_nafs_bound_counts_one_wide_pass():
+    n, e, r, d = 100_000, 2_099_010, 6, 128
+    b = nafs_bound(n, e, r, d)
+    assert b["nbytes"] == 4 * (n + 1) + 4 * e + 4 * e * r + 2 * n * r * d * 4
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["nbytes"] / 3.35e12 * 1e3)

@@ -515,3 +515,101 @@ def test_segment_reduce_rejects_bad_input(cuda):
         gather_sum(m.double(), rowptr)
     with pytest.raises(ValueError):
         gather_sum(m, rowptr.cpu())
+
+
+# -- the label and NAFS paths: K1 at label widths, its gradient ---------------
+
+
+@pytest.mark.parametrize("d", [3, 47, 64])  # pubmed's classes, an odd width, the main path's
+def test_spmm_csr_at_label_widths_matches_plain(cuda, d):
+    g = random_power_law_graph(20_000, 12, d, seed=6)
+    adj = prepare_csr(symmetric_normalized_weights(g, device=cuda))
+    assert adj.plan.num_long > 0  # the hub rows take the fix-up at these widths too
+    x = torch.as_tensor(g.x, device=cuda)
+    before = spmm_csr.launches["f32"]
+    got = spmm_csr(adj, x)
+    torch.cuda.synchronize()
+    assert spmm_csr.launches["f32"] == before + 1
+    assert _rel_to_max(got, spmm_csr_reference(adj, x)) <= TOL[torch.float32]
+    assert torch.equal(spmm_csr(adj, x), got)
+
+
+@pytest.mark.parametrize("r", [0.5, 0.3])
+def test_spmm_gradient_on_the_card_matches_the_cpu(cuda, r):
+    """``dx = Aᵀ g`` by the CSR kernel on the transposed CSR: one forward
+    and one backward launch, against the CPU path's gradient."""
+    from sgl_tpu_torch.kernels import transposed
+
+    g = random_power_law_graph(20_000, 12, 16, seed=7)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        adj = symmetric_normalized_weights(g, r=r, device=dev)
+        if dev.type == "cuda":
+            adj = prepare_csr(adj)
+        x = torch.as_tensor(g.x, device=dev).requires_grad_(True)
+        before = spmm_csr.launches["f32"]
+        y = spmm(adj, x)
+        if dev.type == "cuda":
+            assert spmm_csr.launches["f32"] == before + 1
+        (y ** 2).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert spmm_csr.launches["f32"] == before + 2
+            assert transposed(adj).plan.num_long > 0
+        grads[dev.type] = x.grad
+    assert grads["cuda"].is_cuda
+    assert _rel_to_max(grads["cuda"].cpu(), grads["cpu"]) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("kind", ["integer", "soft_masked", "correct_and_smooth"])
+def test_label_propagation_on_the_card_matches_the_cpu(cuda, kind):
+    from sgl_tpu_torch.tricks import CorrectAndSmooth, label_propagation
+
+    ds = PlantedPartition()
+    y = torch.as_tensor(np.asarray(ds.y).reshape(-1))
+    rng = np.random.default_rng(0)
+    y_soft = torch.softmax(torch.as_tensor(rng.normal(size=(ds.num_node, ds.num_classes)),
+                                           dtype=torch.float32), dim=1)
+    mask = np.asarray(ds.train_idx)
+    out, launches = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        adj = symmetric_normalized_weights(ds.graph, device=dev)
+        before = spmm_csr.launches["f32"]
+        if kind == "integer":
+            out[dev.type] = label_propagation(y.to(dev), adj, 6, 0.9)
+        elif kind == "soft_masked":
+            out[dev.type] = label_propagation(y_soft.to(dev), adj, 6, 0.9, mask=mask)
+        else:
+            cs = CorrectAndSmooth(5, 0.8, 4, 0.8)
+            c = cs.correct(y_soft.to(dev), y.to(dev), mask, adj)
+            out[dev.type] = cs.smooth(c, y.to(dev), mask, adj)
+        launches[dev.type] = spmm_csr.launches["f32"] - before
+    assert out["cuda"].is_cuda
+    assert launches == {"cuda": 9 if kind == "correct_and_smooth" else 6, "cpu": 0}
+    assert _rel_to_max(out["cuda"].cpu(), out["cpu"]) <= TOL[torch.float32]
+
+
+def test_nafs_sweep_on_the_card_matches_the_cpu(cuda):
+    from sgl_tpu_torch.tasks import nafs_smooth_sweep
+
+    g = random_power_law_graph(8000, 10, 32, seed=8)
+    r_list = (0.5, 0.3, 0.0)
+    before = spmm_csr.launches["f32"]
+    got = list(nafs_smooth_sweep(g, g.x, [0, 2, 5], r_list, "mean", device=cuda))
+    torch.cuda.synchronize()
+    assert spmm_csr.launches["f32"] == before + 5 * len(r_list)
+    want = list(nafs_smooth_sweep(g, g.x, [0, 2, 5], r_list, "mean", device="cpu"))
+    for (hop, a), (_, b) in zip(got, want):
+        assert a.is_cuda and a.shape == b.shape
+        assert _rel_to_max(a.cpu(), b) <= TOL[torch.float32], hop
+
+
+def test_link_prediction_gae_on_the_card(cuda):
+    from sgl_tpu_torch.tasks import LinkPredictionGAE
+
+    ds = PlantedPartition()
+    before = spmm_csr.launches["f32"]
+    task = LinkPredictionGAE(ds, SGC(2, ds.num_features, 16), lr=0.01, weight_decay=5e-5, epochs=10,
+                             verbose=False)
+    assert spmm_csr.launches["f32"] == before + 2
+    assert task.test_roc_auc > 0.7, task.test_roc_auc

@@ -1,6 +1,7 @@
 """The port stands alone: ``sgl_tpu_torch`` and ``chip_smoke.py`` import
-nothing of JAX, Flax, Optax, ``sgl_tpu`` or the JAX harnesses in ``dev/``,
-and importing the package needs no CUDA."""
+nothing of JAX, Flax, Optax, ``sgl_tpu``, the JAX harnesses in ``dev/``,
+scikit-learn or matplotlib (the card's machine has neither), and importing
+the package needs no CUDA."""
 
 import pathlib
 import re
@@ -10,7 +11,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("datasets", "dev", "examples", "graph", "kernels", "models", "ops", "tasks", "utils")
+SUBPACKAGES = ("datasets", "dev", "examples", "graph", "kernels", "models", "ops", "tasks", "tricks", "utils")
 MODULES = [
     "sgl_tpu_torch", "sgl_tpu_torch.convert", "sgl_tpu_torch.kernels._build",
     "sgl_tpu_torch.examples.products_scale_demo", "sgl_tpu_torch.dev.exp_spmm",
@@ -18,12 +19,21 @@ MODULES = [
     "sgl_tpu_torch.dev.tune_spmm_csr", "sgl_tpu_torch.dev.tune_segment_reduce",
     "sgl_tpu_torch.graph.native", "sgl_tpu_torch.graph.transforms", "sgl_tpu_torch.datasets.planetoid",
     "sgl_tpu_torch.datasets.utils", "sgl_tpu_torch.models.homo", "sgl_tpu_torch.ops.message_ops",
+    "sgl_tpu_torch.kernels.sparse", "sgl_tpu_torch.tasks.utils", "sgl_tpu_torch.tricks.utils",
+    "sgl_tpu_torch.tricks.correct_and_smooth", "sgl_tpu_torch.tasks.correct_and_smooth",
+    "sgl_tpu_torch.tasks.node_classification_with_label_use", "sgl_tpu_torch.tasks.inference",
+    "sgl_tpu_torch.tasks.clustering_metrics", "sgl_tpu_torch.tasks.node_clustering",
+    "sgl_tpu_torch.tasks.link_prediction", "chip_smoke",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
 ]
+# the top-level packages the port never imports
+NEVER = ("jax", "flax", "optax", "sgl_tpu", "sklearn", "matplotlib")
 # word-bounded: ``sgl_tpu_torch`` is not ``sgl_tpu``; ``dev`` and ``exp_*``
 # are the JAX harnesses, which the port's ``sgl_tpu_torch.dev`` replaces
-FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|optax|sgl_tpu|dev|exp_\w+)\b", re.M)
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|flax|optax|sgl_tpu|sklearn|matplotlib|dev|exp_\w+)\b", re.M
+)
 SOURCES = sorted((ROOT / "sgl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -33,7 +43,7 @@ def test_import_pulls_in_no_jax_or_reference():
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'sgl_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {NEVER!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -59,3 +69,6 @@ def test_forbidden_pattern_is_word_bounded():
     assert FORBIDDEN.search("from exp_spmm import run_micro9")
     assert not FORBIDDEN.search("from sgl_tpu_torch.dev import exp_spmm")
     assert not FORBIDDEN.search("import devices")
+    assert FORBIDDEN.search("from sklearn.cluster import KMeans")
+    assert FORBIDDEN.search("    import matplotlib.pyplot as plt")
+    assert not FORBIDDEN.search("import sklearn_like")
