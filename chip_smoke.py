@@ -85,12 +85,29 @@ Phases; any failure raises and the script exits non-zero:
    ``Aᵀ(2Ax)``, both kernels timed; NAFS's product at R = 6, D = 128: R
    launches of K1 against the plain one-gather form, beside the bound of
    one R·D-wide pass;
-9. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
+9. the NARS path and graph classification on the card: first both
+   families on small graphs (``SyntheticHeteroDataset(seed=1)``,
+   ``SyntheticGraphClassification(200)``) against the port's CPU path (the
+   subsets chosen, the features, the logits from the same weights, Fast
+   NARS's subgraph weights); then, the launch counters set to 0 just
+   before each run and read just after and held to
+   ``expected_hetero_launches``, ``HeteroNodeClassification`` with
+   ``Fast_NARS_SGC_WithLearnableWeights`` and ``NARS_SIGN`` on
+   ``SyntheticHeteroDataset`` at a quarter of ogbn-mag's node counts (128
+   features, 349 classes, hidden 512, three relation subsets of two, 3
+   epochs in batches of 10,000), and ``GraphClassification`` with
+   ``GraphSIGN`` (f32) and ``GraphSGC`` (bf16 precompute) on 40,000
+   synthetic graphs (20 epochs); each run's host sampling, preprocess,
+   epoch times and peak device memory; K1 and K2 at the NARS batch and at
+   the graph-level batch against their twin, timed beside their bound and
+   ``torch.sparse.mm``;
+10. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
    (for K1–K4 and D2–D6 also the fix-up's; for K1/K2 also phase 7's, as
-   ``zoo_launches``; for K1 also phase 8's, as ``label_launches``, with its
-   label widths, its gradient and the NAFS product), errors and times
-   beside its bound;
-10. print ``{"ok": true, "device": {...}}`` as the last line.
+   ``zoo_launches``, and phase 9's, as ``hetero_launches``, with their
+   times at the two phase-9 batches; for K1 also phase 8's, as
+   ``label_launches``, with its label widths, its gradient and the NAFS
+   product), errors and times beside its bound;
+11. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
 to it, and exits non-zero without printing a result when either is missing.
@@ -207,10 +224,11 @@ def check_repeatable(fn, where: str) -> None:
     check(torch.equal(first, second), f"{where}: two runs differ")
 
 
-def compare(adj, x, key: str, where: str) -> tuple:
+def compare(adj, x, key: str, where: str, against_f64: bool = True) -> tuple:
     """The kernel against its plain twin on the same inputs; raises past
     ``TOL``.  Returns (max abs err, max rel err, max rel err against the
-    float64 sum)."""
+    float64 sum, or None without ``against_f64``: its E·D float64 messages
+    are 30 GB at the NARS batch)."""
     from sgl_tpu_torch.kernels import spmm_csr, spmm_csr_reference
 
     y_k = spmm_csr(adj, x)
@@ -220,7 +238,7 @@ def compare(adj, x, key: str, where: str) -> tuple:
     check(torch.isfinite(y_k.float()).all().item(), f"{key}: non-finite kernel output")
     abs_err, rel = rel_err(y_k, y_ref)
     check(rel <= TOL[key], f"spmm_csr {key} disagrees with its plain twin at {where}: {rel:.3e}")
-    return abs_err, rel, rel_err(y_k, f64_sum(adj, x))[1]
+    return abs_err, rel, rel_err(y_k, f64_sum(adj, x))[1] if against_f64 else None
 
 
 def kernel_phase(dev):
@@ -243,9 +261,9 @@ def kernel_phase(dev):
         ms = time_ms(lambda: spmm_csr(adj, x))
         plain_ms = time_ms(lambda: spmm_csr_reference(adj, x))
         library_ms, lib_note = library_time(adj, x, spmm_csr_reference(adj, x))
-        nbytes = 4 * (n + 1) + 8 * e + 2 * n * d * x.element_size()
-        results[key] = dict(abs_err=abs_err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms, **bound(nbytes, e, d))
+        b = csr_bound(n, e, d, x.element_size())
+        nbytes = b.pop("nbytes")
+        results[key] = dict(abs_err=abs_err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
         log(f"[2] spmm_csr {key}: max abs err {abs_err:.3e}, max rel err {rel:.3e} "
             f"(limit {TOL[key]:.0e}; vs an f64 sum {rel64:.3e}); kernel {ms:.4f} ms/hop = {e / ms / 1e6:.3f} G edges/s; "
             f"plain twin {plain_ms:.4f} ms; bound {results[key]['bound_ms']:.4f} ms "
@@ -1092,23 +1110,25 @@ def nafs_bound(n: int, e: int, r: int, d: int) -> dict:
     return dict(b, nbytes=nbytes)
 
 
-def run_counted(name: str, fn, want: dict):
+def run_counted(name: str, fn, launches: dict, fixups: dict, phase: str) -> tuple:
     """``fn()`` with the CSR kernel's counters set to 0 just before and read
-    just after; checks the f32 launches against ``want[name]`` (every
-    product on these graphs has a long row, so each has its fix-up), and
-    returns ``(result, seconds, launches)``."""
+    just after, held to ``launches`` and ``fixups`` by instantiation (0 for
+    every one not named).  Returns ``(result, seconds, launches, fix-ups,
+    peak device bytes)``."""
     from sgl_tpu_torch.kernels import spmm_csr
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    counts, fixups = dict(spmm_csr.launches), dict(spmm_csr.fixup_launches)
-    expect = {k: (want[name] if k == "f32" else 0) for k in counts}
-    check(counts == expect, f"[8] {name}: launches {counts}, expected {expect}")
-    check(fixups == expect, f"[8] {name}: fix-up launches {fixups}, expected {expect}")
-    return out, seconds, counts["f32"]
+    counts, fixup_counts = dict(spmm_csr.launches), dict(spmm_csr.fixup_launches)
+    for what, got, want in (("launches", counts, launches), ("fix-up launches", fixup_counts, fixups)):
+        expect = {k: want.get(k, 0) for k in got}
+        check(got == expect, f"[{phase}] {name}: {what} {got}, expected {expect}")
+    return out, seconds, counts, fixup_counts, torch.cuda.max_memory_allocated()
 
 
 def label_small_graph(dev) -> None:
@@ -1347,7 +1367,10 @@ def label_phase(dev) -> dict:
     seconds, launches = {}, {}
 
     def run(name, fn):
-        out, seconds[name], launches[name] = run_counted(name, fn, want)
+        # every product on these graphs has a long row: each has its fix-up
+        f32 = {"f32": want[name]}
+        out, seconds[name], counts, _, _ = run_counted(name, fn, f32, f32, "8")
+        launches[name] = counts["f32"]
         return out
 
     cs = run("C&S", lambda: NodeClassificationWithCorrectAndSmooth(
@@ -1430,6 +1453,231 @@ def label_phase(dev) -> dict:
                 tasks={k: dict(seconds=seconds[k], launches=launches[k]) for k in seconds})
 
 
+# -- phase 9: the NARS path and graph classification -----------------------------
+
+# ogbn-mag's paper : author : field counts (736,389 : 1,134,649 : 59,965) at
+# about a quarter, its 128 features and 349 classes (OgbnMag); the main
+# path's hidden width (bench.py:247); every connected relation pair
+NARS_DATASET = dict(counts={"paper": 200_000, "author": 308_000, "subject": 16_000}, avg_degree=10,
+                    feat_dim=128, num_classes=349, seed=0)
+NARS_MODEL = dict(prop_steps=3, hidden_dim=512, num_layers=2)
+NARS_SUBSETS = dict(random_subgraph_num=3, subgraph_edge_type_num=2)
+NARS_TRAIN = dict(lr=0.01, weight_decay=5e-5, epochs=3, train_batch_size=10_000)
+NARS_SEED = 42  # HeteroNodeClassification's default seed, which draws the subsets
+# ogbg-molhiv's graph count (41,127), 20-40 nodes a graph, 128 features
+GRAPH_DATASET = dict(num_graphs=40_000, nodes_per_graph=(20, 40), feat_dim=128, seed=0)
+GRAPH_STEPS, GRAPH_HIDDEN = 3, 512
+GRAPH_TRAIN = dict(lr=0.01, weight_decay=5e-5, epochs=20)
+
+
+def expected_hetero_launches() -> dict:
+    """The CSR kernel's launches of each phase-9 run, by instantiation, and
+    its fix-ups: one propagation of ``prop_steps`` products each (the S
+    subgraphs, or the dataset's graphs, in one block-diagonal batch), no
+    fix-up (no row of these graphs passes ``SPLIT_NNZ``).  ``PERF.md`` §6
+    states them."""
+    k_nars, k_graph = NARS_MODEL["prop_steps"], GRAPH_STEPS
+    f32 = lambda k: {"f32": k, "bf16": 0}  # noqa: E731
+    return {
+        "Fast NARS": dict(launches=f32(k_nars), fixups={"f32": 0, "bf16": 0}),
+        "NARS_SIGN": dict(launches=f32(k_nars), fixups={"f32": 0, "bf16": 0}),
+        "GraphSIGN": dict(launches=f32(k_graph), fixups={"f32": 0, "bf16": 0}),
+        "GraphSGC bf16": dict(launches={"f32": 0, "bf16": k_graph}, fixups={"f32": 0, "bf16": 0}),
+    }
+
+
+def csr_bound(n: int, e: int, d: int, elem: int) -> dict:
+    """:func:`bound` of one one-shot product: ``4(N+1) + 8E + 2·N·D·s``
+    bytes, or ``2·E·D`` f32 operations."""
+    nbytes = 4 * (n + 1) + 8 * e + 2 * n * d * elem
+    return dict(bound(nbytes, e, d), nbytes=nbytes)
+
+
+def hetero_small_graph(dev) -> None:
+    """Both families on small graphs, on the card against the port's CPU
+    path: the subsets chosen, the features, the logits from the same
+    weights, Fast NARS's subgraph weights after two epochs (dropout 0)."""
+    from sgl_tpu_torch.datasets import SyntheticGraphClassification, SyntheticHeteroDataset
+    from sgl_tpu_torch.models import Fast_NARS_SGC_WithLearnableWeights, GraphSGC, GraphSIGN, NARS_SIGN
+    from sgl_tpu_torch.models.blocks import FastDropout
+    from sgl_tpu_torch.tasks import HeteroNodeClassification
+
+    cpu = torch.device("cpu")
+    ds = SyntheticHeteroDataset(seed=1)
+    idx = torch.arange(0, ds.data.num_node["paper"], 2)
+    errs = {}
+    for name, cls in (("Fast NARS", Fast_NARS_SGC_WithLearnableWeights), ("NARS_SIGN", NARS_SIGN)):
+        card, host = (cls(2, 16, ds.num_classes, 16, 2, 2) for _ in range(2))
+        for m, d in ((card, dev), (host, cpu)):
+            m.preprocess(ds, "paper", random_subgraph_num=2, subgraph_edge_type_num=2, device=d)
+        check(card.subgraph_keys == host.subgraph_keys, f"[9] {name}: subsets {card.subgraph_keys} vs "
+                                                          f"{host.subgraph_keys}")
+        check(card.processed_feature.is_cuda, f"[9] {name}: features not on the card")
+        feat = rel_err(card.processed_feature.cpu(), host.processed_feature)[1]
+        host.init(torch.Generator().manual_seed(0))
+        card.net.load_state_dict(host.net.state_dict())
+        card.net.to(dev)
+        logit = rel_err(card.apply(idx.to(dev)).detach().cpu(), host.apply(idx).detach())[1]
+        check(max(feat, logit) <= TOL["f32"], f"[9] {name}: card vs CPU features {feat:.3e}, logits {logit:.3e}")
+        errs[name] = (feat, logit)
+    weights = []
+    for d in (dev, cpu):
+        m = Fast_NARS_SGC_WithLearnableWeights(2, 16, ds.num_classes, 16, 2, 2)
+        for mod in m.net.modules():
+            if isinstance(mod, FastDropout):
+                mod.rate = 0.0
+        weights.append(torch.as_tensor(HeteroNodeClassification(
+            ds, "paper", m, lr=0.05, weight_decay=5e-5, epochs=2, device=d, random_subgraph_num=2,
+            subgraph_edge_type_num=2, record_subgraph_weight=True, verbose=False).subgraph_weight))
+    w_err = rel_err(*weights)[1]
+    check(w_err <= TOL["f32"], f"[9] Fast NARS subgraph_weight card vs CPU {w_err:.3e}")
+
+    gds = SyntheticGraphClassification(200)
+    for name, key, make, dtype in (
+        ("GraphSIGN", "f32", lambda: GraphSIGN(2, gds.num_features, gds.num_classes, hidden_dim=16), None),
+        ("GraphSGC bf16", "bf16", lambda: GraphSGC(2, gds.num_features, gds.num_classes, readout="max"),
+         torch.bfloat16),
+    ):
+        card, host = make(), make()
+        for m, d in ((card, dev), (host, cpu)):
+            m.preprocess(gds.batch(), dtype=dtype, device=d)
+        check(card.processed_feature.is_cuda, f"[9] {name}: features not on the card")
+        feat = rel_err(card.processed_feature.cpu(), host.processed_feature)[1]
+        host.init(torch.Generator().manual_seed(0))
+        card.net.load_state_dict(host.net.state_dict())
+        card.net.to(dev)
+        logit = rel_err(card.net(card.net_inputs()[0]).detach().cpu(), host.net(host.net_inputs()[0]).detach())[1]
+        check(max(feat, logit) <= TOL[key], f"[9] {name}: card vs CPU features {feat:.3e}, logits {logit:.3e} "
+                                            f"(limit {TOL[key]:.0e})")
+        errs[name] = (feat, logit)
+    log(f"[9] small graphs, card vs the CPU path (max rel err of features, logits): "
+        + ", ".join(f"{k} ({a:.3e}, {b:.3e})" for k, (a, b) in errs.items())
+        + f"; the same subsets; Fast NARS subgraph_weight after 2 epochs {w_err:.3e} (limits 1e-05 f32, 1e-02 bf16)")
+
+
+def batch_kernel_times(batch, dev, where: str) -> dict:
+    """K1 and K2 on the adjacency a phase-9 run propagates over, against
+    their twin, timed beside their bound and ``torch.sparse.mm``."""
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.kernels import prepare_csr, spmm_csr, spmm_csr_reference
+
+    adj = prepare_csr(symmetric_normalized_weights(batch.graph, device=dev))
+    n, e = adj.num_nodes, adj.nnz
+    x32 = torch.as_tensor(batch.graph.x, device=dev)
+    d = x32.shape[1]
+    out = {}
+    for key, dtype in DTYPES.items():
+        x = x32.to(dtype)
+        abs_err, rel, _ = compare(adj, x, key, where, against_f64=False)
+        ms = time_ms(lambda: spmm_csr(adj, x))
+        plain_ms = time_ms(lambda: spmm_csr_reference(adj, x))
+        library_ms, lib_note = library_time(adj, x, spmm_csr_reference(adj, x))
+        b = csr_bound(n, e, d, x.element_size())
+        out[key] = dict(max_abs_err=abs_err, max_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=b["bound_ms"], bound_by=b["bound_by"], nodes=n, nonzeros=e)
+        log(f"[9] spmm_csr {key} at {where} ({n} nodes, {e} nonzeros with self-loops, d={d}, longest row "
+            f"{int(torch.diff(adj.rowptr.long()).max())}, {adj.plan.num_long} long rows): max rel err "
+            f"{rel:.3e} (limit {TOL[key]:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['nbytes'] / 1e6:.1f} MB, {b['bound_by']}), library {lib_note}")
+    return out
+
+
+def hetero_phase(dev) -> dict:
+    """The NARS path and graph classification through the user's entry
+    points on the card (section 9 of the module docstring).  Returns the
+    CSR kernel's launches of the counted runs and the kernels' times at
+    the two batch shapes."""
+    from sgl_tpu_torch.datasets import SyntheticGraphClassification, SyntheticHeteroDataset
+    from sgl_tpu_torch.graph import batch_graphs
+    from sgl_tpu_torch.models import Fast_NARS_SGC_WithLearnableWeights, GraphSGC, GraphSIGN, NARS_SIGN
+    from sgl_tpu_torch.tasks import GraphClassification, HeteroNodeClassification
+
+    hetero_small_graph(dev)
+    want = expected_hetero_launches()
+    launches = {"f32": 0, "bf16": 0, "fixup_f32": 0, "fixup_bf16": 0}
+    runs = {}
+
+    def add(name, counts, fixups, peak, **numbers):
+        for key in ("f32", "bf16"):
+            launches[key] += counts[key]
+            launches["fixup_" + key] += fixups[key]
+        runs[name] = dict(launches=counts, fixups=fixups, peak_bytes=peak, **numbers)
+
+    t = time.perf_counter()
+    ds = SyntheticHeteroDataset(**NARS_DATASET)
+    build_s = time.perf_counter() - t
+    hg = ds.data
+    log(f"[9] NARS dataset: {hg.num_node} nodes, " + ", ".join(
+        f"{et} {e.num_edges}" for et, e in hg.edges.items()) + f" edges, {NARS_DATASET['feat_dim']} features, "
+        f"{ds.num_classes} classes ({build_s:.2f} s on the host)")
+    f, c, k = NARS_DATASET["feat_dim"], ds.num_classes, NARS_MODEL["prop_steps"]
+    wide = (k, f, c, NARS_MODEL["hidden_dim"], NARS_MODEL["num_layers"], NARS_SUBSETS["random_subgraph_num"])
+    for name, cls in (("Fast NARS", Fast_NARS_SGC_WithLearnableWeights), ("NARS_SIGN", NARS_SIGN)):
+        model = cls(*wide)
+        task, _, counts, fixups, peak = run_counted(name, lambda: HeteroNodeClassification(
+            ds, "paper", model, device=dev, verbose=False, seed=NARS_SEED, **NARS_TRAIN, **NARS_SUBSETS,
+            record_subgraph_weight=name == "Fast NARS"), **want[name], phase="9")
+        pf = model.processed_feature
+        check(pf.is_cuda and torch.isfinite(pf).all().item(), f"[9] {name}: bad features")
+        check(0.0 <= task.test_acc <= 1.0, f"[9] {name}: test accuracy {task.test_acc}")
+        epochs_ms = [s * 1e3 for s in task.epoch_seconds]
+        add(name, counts, fixups, peak, sampling_s=model.sampling_seconds,
+            preprocess_s=task.preprocess_seconds, epoch_ms=statistics.median(epochs_ms))
+        extra = f", subgraph_weight {np.round(task.subgraph_weight, 4).tolist()}" if name == "Fast NARS" else ""
+        log(f"[9] {name} ({NARS_MODEL}, {NARS_SUBSETS}, {NARS_TRAIN}): subsets {model.subgraph_keys}; "
+            f"launches {counts}, fix-ups {fixups} (expected {want[name]['launches']}, {want[name]['fixups']}); "
+            f"features {tuple(pf.shape)}; host sampling {model.sampling_seconds:.4f} s of preprocess "
+            f"{task.preprocess_seconds:.4f} s; train epoch ms {[round(m, 3) for m in epochs_ms]}; peak device "
+            f"memory {peak / 2**30:.3f} GiB; best-val test acc {task.test_acc:.4f}{extra}")
+        del model, task, pf
+    t = time.perf_counter()
+    subgraphs = ds.nars_preprocess(ds.edge_types, "paper", seed=NARS_SEED, **NARS_SUBSETS)
+    nars_batch = batch_graphs([g.replace(x=feat) for g, feat, _ in subgraphs.values()])
+    log(f"[9] NARS batch rebuilt for the kernel probe in {time.perf_counter() - t:.2f} s: "
+        f"{nars_batch.num_nodes} nodes, {nars_batch.graph.num_edges} edges")
+    times = {"nars": batch_kernel_times(nars_batch, dev, "the NARS batch")}
+    del ds, subgraphs, nars_batch
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    gds = SyntheticGraphClassification(**GRAPH_DATASET)
+    build_s = time.perf_counter() - t
+    fg, cg = gds.num_features, gds.num_classes
+    graph_runs = (
+        ("GraphSIGN", lambda: GraphSIGN(GRAPH_STEPS, fg, cg, hidden_dim=GRAPH_HIDDEN, num_layers=2,
+                                        readout="mean"), None),
+        ("GraphSGC bf16", lambda: GraphSGC(GRAPH_STEPS, fg, cg, readout="max"), torch.bfloat16),
+    )
+    batch_s = None
+    for name, make, dtype in graph_runs:
+        model = make()
+        task, _, counts, fixups, peak = run_counted(name, lambda: GraphClassification(
+            gds, model, device=dev, verbose=False, precompute_dtype=dtype, **GRAPH_TRAIN), **want[name], phase="9")
+        batch_s = task.batch_seconds if batch_s is None else batch_s
+        pf = model.processed_feature
+        check(pf.is_cuda and pf.dtype == (dtype or torch.float32) and torch.isfinite(pf.float()).all().item(),
+              f"[9] {name}: bad features")
+        check(0.0 <= task.test_acc <= 1.0, f"[9] {name}: test accuracy {task.test_acc}")
+        epochs_ms = [s * 1e3 for s in task.epoch_seconds]
+        add(name, counts, fixups, peak, preprocess_s=task.preprocess_seconds,
+            epoch_ms=statistics.median(epochs_ms))
+        log(f"[9] {name} ({GRAPH_STEPS} hops, {GRAPH_TRAIN}): launches {counts}, fix-ups {fixups} (expected "
+            f"{want[name]['launches']}, {want[name]['fixups']}); pooled features {tuple(pf.shape)} {pf.dtype}; "
+            f"preprocess {task.preprocess_seconds:.4f} s; train epoch ms median "
+            f"{statistics.median(epochs_ms):.3f} (first {epochs_ms[0]:.3f}); peak device memory "
+            f"{peak / 2**30:.3f} GiB; best-val test acc {task.test_acc:.4f}")
+        del model, task, pf
+    batch = gds.batch()
+    log(f"[9] graph dataset: {gds.num_graphs} graphs, {batch.num_nodes} nodes, {batch.graph.num_edges} edges, "
+        f"{fg} features, {cg} classes; {build_s:.2f} s to generate the graphs and {batch_s:.2f} s to batch "
+        f"them on the host")
+    times["graph"] = batch_kernel_times(batch, dev, "the graph-level batch")
+    log(f"[9] runs (s / ms / GiB): " + ", ".join(
+        f"{k} (" + ", ".join(f"{m} {v:.4f}" if isinstance(v, float) else f"{m} {v}" for m, v in r.items()
+                             if m not in ("launches", "fixups")) + ")" for k, r in runs.items()))
+    return dict(launches=launches, times=times, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs one GPU", file=sys.stderr)
@@ -1486,8 +1734,9 @@ def main() -> int:
     dev_launches, dev_results = phase("6", dev_phase, dev)
     zoo_launches = phase("7", zoo_phase, dev, products_graph)
     label = phase("8", label_phase, dev)
+    hetero = phase("9", hetero_phase, dev)
     print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products,
-                                  dev_launches, dev_results, zoo_launches, label)))
+                                  dev_launches, dev_results, zoo_launches, label, hetero)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
@@ -1495,7 +1744,7 @@ def main() -> int:
 
 
 def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
-                 zoo_launches, label) -> dict:
+                 zoo_launches, label, hetero) -> dict:
     kernels = []
     for key in ("f32", "bf16"):
         r = bench[key]
@@ -1517,6 +1766,11 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
     k1.update(label_launches=label["launches"], label_fixup_launches=label["fixup_launches"],
               label_widths={str(d): r for d, r in label["widths"].items()},
               gradient=label["gradient"], nafs_product=label["multi"])
+    # phase 9, the NARS path and graph classification, apart from the main
+    # path: their launches, and K1/K2 at the NARS and graph-level batches
+    for key, k in zip(("f32", "bf16"), kernels[:2]):
+        k.update(hetero_launches=hetero["launches"][key], hetero_fixup_launches=hetero["launches"]["fixup_" + key],
+                 nars_batch=hetero["times"]["nars"][key], graph_batch=hetero["times"]["graph"][key])
     for key in ("f32", "bf16"):
         p, sb = products[key], stream_bench[key]
         kernels.append({

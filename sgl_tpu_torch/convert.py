@@ -16,7 +16,6 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from sgl_tpu_torch.models.base import SGAPModel
 from sgl_tpu_torch.models.blocks import (
     Dense,
     IdenticalMapping,
@@ -104,14 +103,20 @@ def _load_base(base: torch.nn.Module, tree: Mapping, stats: Mapping) -> None:
         raise TypeError(f"no Flax mapping for base model {type(base).__name__}")
 
 
-def load_flax_params(model: SGAPModel, params: Mapping) -> None:
-    """Copy a Flax ``SGAPNet`` variable tree (``{"params": {...},
-    "batch_stats": {...}}``, or the inside of ``params`` alone) into
-    ``model``'s trainable modules, in place."""
+def load_flax_params(model, params: Mapping) -> None:
+    """Copy a Flax variable tree (``{"params": {...}, "batch_stats":
+    {...}}``, or the inside of ``params`` alone) into ``model``'s trainable
+    modules, in place.  ``model.net`` is an ``SGAPNet``, a
+    ``HeteroSGAPNet`` or ``FastHeteroSGAPNet`` (its ``aggregator/weight``
+    has Flax's shape, ``(K, D, S)`` or ``(S·K, 1)``), or a
+    ``GraphReadoutNet``."""
     tree = params.get("params", params)
     stats = params.get("batch_stats", {})
     net = model.net
-    if net.msg_op is not None:
+    aggregator = getattr(net, "aggregator", None)
+    if aggregator is not None:
+        _copy(aggregator.weight, tree["aggregator"]["weight"], "aggregator.weight")
+    if getattr(net, "msg_op", None) is not None:
         _load_msg_op(net.msg_op, tree["msg_op"], stats.get("msg_op", {}))
     _load_base(net.base_model, tree.get("base_model", {}), stats.get("base_model", {}))
 

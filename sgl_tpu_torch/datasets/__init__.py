@@ -1,7 +1,23 @@
-from sgl_tpu_torch.datasets.base import DeviceSplit, NodeDataset, random_split  # noqa: F401
+from sgl_tpu_torch.datasets.base import (  # noqa: F401
+    DeviceSplit,
+    GraphDataset,
+    HeteroNodeDataset,
+    NodeDataset,
+    random_split,
+)
+from sgl_tpu_torch.datasets.choose_edge_type import (  # noqa: F401
+    choose_edge_type,
+    choose_multi_subgraphs,
+    remove_duplicate_edge_types,
+)
+from sgl_tpu_torch.datasets.hetero_datasets import Acm, Aminer, Dblp, DblpOriginal, Imdb  # noqa: F401
 from sgl_tpu_torch.datasets.planetoid import Planetoid  # noqa: F401
 from sgl_tpu_torch.datasets.synthetic import (  # noqa: F401
     PlantedPartition,
+    SyntheticGraphClassification,
+    SyntheticHeteroDataset,
     SyntheticPowerLaw,
     random_power_law_graph,
+    synthetic_hetero,
 )
+from sgl_tpu_torch.datasets.tu_dataset import TUDataset  # noqa: F401

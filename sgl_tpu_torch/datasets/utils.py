@@ -1,8 +1,10 @@
 """Dataset parsing helpers — counterpart of ``sgl_tpu/datasets/utils.py``
-(the ones the Planetoid loader needs, and the 60/20/20 random split)."""
+(the ones the Planetoid and TU loaders need, and the 60/20/20 random
+split)."""
 
 from __future__ import annotations
 
+import gzip
 import pickle
 
 import numpy as np
@@ -42,3 +44,17 @@ def random_split_dataset(n_samples: int, seed=None):
     test_idx = rng.choice(remain, size=int(n_samples * 0.2), replace=False)
     train_idx = np.setdiff1d(remain, test_idx)
     return train_idx, val_idx, test_idx
+
+
+def read_csv_gz(path: str, dtype=np.float32) -> np.ndarray:
+    """A headerless csv, gzipped or not (the OGB and TU raw formats), as a
+    2-D array.  ``sgl_tpu`` parses with a native loader when it builds and
+    falls back to this ``numpy.loadtxt``; the arrays are the same."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        return np.loadtxt(f, delimiter=",", dtype=dtype, ndmin=2)
+
+
+def read_index_csv_gz(path: str) -> np.ndarray:
+    """A one-column integer csv as a flat int64 array."""
+    return read_csv_gz(path, dtype=np.int64).reshape(-1)

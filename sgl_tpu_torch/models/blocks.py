@@ -8,7 +8,10 @@ same distributions (not the same numbers: the random streams differ):
 * the MLP's layers use ``variance_scaling(2, fan_avg, uniform)`` (xavier
   uniform with ReLU gain) and zero biases;
 * ``PReLU`` is one slope, 0.25, shared across the MLP's layers;
-* ``BatchNorm`` starts at scale 1, bias 0, running mean 0 and variance 1.
+* ``BatchNorm`` starts at scale 1, bias 0, running mean 0 and variance 1;
+* the NARS aggregators' 3-D weights use ``variance_scaling(1, fan_avg,
+  uniform)`` with Flax's fan rule (:func:`flax_fans`), and
+  ``FastOneDimConvolution`` starts from ones.
 
 Every module that owns parameters has ``reset_parameters(generator)``;
 :func:`init_params` runs them all from one explicit ``torch.Generator``.
@@ -35,6 +38,22 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
 def xavier_relu_uniform_(w: torch.Tensor, fan_in: int, fan_out: int, generator=None):
     """``variance_scaling(2.0, "fan_avg", "uniform")``."""
     limit = math.sqrt(3.0 * 2.0 / ((fan_in + fan_out) / 2.0))
+    return nn.init.uniform_(w, -limit, limit, generator=generator)
+
+
+def flax_fans(shape) -> tuple:
+    """Flax's ``(fan_in, fan_out)`` of a weight: the last two axes are in
+    and out, and every leading axis is the receptive field, multiplied into
+    both (``(K, D, S)`` gives ``(D·K, S·K)``)."""
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def fan_avg_uniform_(w: torch.Tensor, generator=None) -> torch.Tensor:
+    """``variance_scaling(1.0, "fan_avg", "uniform")``: uniform within
+    ``±sqrt(6 / (fan_in + fan_out))``."""
+    fan_in, fan_out = flax_fans(tuple(w.shape))
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
     return nn.init.uniform_(w, -limit, limit, generator=generator)
 
 
@@ -249,3 +268,55 @@ class ResMultiLayerPerceptron(nn.Module):
             x = h + residual
             residual = h
         return self.layers[-1](self.dropout(x, train, generator))
+
+
+class OneDimConvolution(nn.Module):
+    """NARS aggregator: a learnable weight per (hop, feature, subgraph).
+    Input ``(K, B, D, S)`` hop-major subgraph features; output the
+    weighted mean over subgraphs, ``(K, B, D)`` [Flax ``weight`` ``(K, D,
+    S)``]."""
+
+    def __init__(self, num_subgraphs: int, prop_steps: int, feat_dim: int):
+        super().__init__()
+        self.num_subgraphs = num_subgraphs
+        self.prop_steps = prop_steps
+        self.weight = nn.Parameter(torch.empty(prop_steps, feat_dim, num_subgraphs))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        fan_avg_uniform_(self.weight, generator)
+
+    def forward(self, feats_kbds: torch.Tensor) -> torch.Tensor:
+        return torch.mean(feats_kbds * self.weight[:, None, :, :], dim=-1)
+
+
+class OneDimConvolutionWeightSharedAcrossFeatures(OneDimConvolution):
+    """As :class:`OneDimConvolution` with one weight per (hop, subgraph),
+    shared across features [Flax ``weight`` ``(K, 1, S)``]."""
+
+    def __init__(self, num_subgraphs: int, prop_steps: int):
+        super().__init__(num_subgraphs, prop_steps, 1)
+
+
+class FastOneDimConvolution(nn.Module):
+    """One learnable weight per (subgraph, hop), applied as one matmul over
+    packed ``(B, D, S·K)`` features (subgraph-major) [Flax ``weight``
+    ``(S·K, 1)``].  Starts from ones, as ``sgl_tpu`` does."""
+
+    def __init__(self, num_subgraphs: int, prop_steps: int):
+        super().__init__()
+        self.num_subgraphs = num_subgraphs
+        self.prop_steps = prop_steps
+        self.weight = nn.Parameter(torch.ones(num_subgraphs * prop_steps, 1))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.fill_(1.0)
+
+    def forward(self, feats_bdsk: torch.Tensor) -> torch.Tensor:
+        return torch.squeeze(feats_bdsk @ self.weight, dim=2)
+
+    def subgraph_weight(self) -> torch.Tensor:
+        """Each subgraph's weight summed over its hops: ``(S,)``."""
+        return self.weight.detach().reshape(self.num_subgraphs, self.prop_steps).sum(dim=1)

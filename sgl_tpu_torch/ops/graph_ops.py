@@ -78,6 +78,10 @@ class GraphOp:
         self._adj_cache = (weakref.ref(graph), device, adj)
         return adj
 
+    def clear_cache(self) -> None:
+        """Drop the cached adjacency, and the device memory it holds."""
+        self._adj_cache = (None, None, None)
+
     def _check(self, graph: Graph, x) -> None:
         if graph.num_nodes != np.shape(x)[0]:
             raise ValueError(

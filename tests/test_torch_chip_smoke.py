@@ -4,7 +4,11 @@ import pytest
 import torch
 
 from chip_smoke import (
+    GRAPH_STEPS,
     LABEL_WIDTHS,
+    NARS_MODEL,
+    csr_bound,
+    expected_hetero_launches,
     expected_label_launches,
     kernels_line,
     nafs_bound,
@@ -72,9 +76,16 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
                                                            for d in LABEL_WIDTHS},
                  gradient={"forward": dict(probe), "backward": dict(probe, launches=1)},
                  multi=dict(per_r_ms=1.0, multi_ms=1.1, gather_ms=9.0, bound_ms=0.2, per_r_bound_ms=0.21))
+    at_batch = {k: dict(probe, max_abs_err=0.0, max_rel_err=0.0) for k in ("f32", "bf16")}
+    hetero = dict(launches={"f32": 9, "bf16": 3, "fixup_f32": 0, "fixup_bf16": 0},
+                  times={"nars": at_batch, "graph": at_batch})
     line = kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo, label)
+                        dev_launches, dev_results, zoo, label, hetero)
     kernels = line["kernels"]
+    # phase 9's on K1 and K2, with their times at the NARS and graph-level batches
+    assert [(k["hetero_launches"], k["hetero_fixup_launches"]) for k in kernels[:2]] == [(9, 0), (3, 0)]
+    assert all(k["nars_batch"]["ms"] == 1.0 and k["graph_batch"]["bound_by"] == "bytes" for k in kernels[:2])
+    assert "hetero_launches" not in kernels[2]
     # phase 7's launches of the CSR kernel sit beside the main path's
     assert [(k["zoo_launches"], k["zoo_fixup_launches"]) for k in kernels[:2]] == [(24, 24), (3, 3)]
     # phase 8's on K1 (f32) alone, with its label widths and its gradient
@@ -106,5 +117,29 @@ def test_nafs_bound_counts_one_wide_pass():
     n, e, r, d = 100_000, 2_099_010, 6, 128
     b = nafs_bound(n, e, r, d)
     assert b["nbytes"] == 4 * (n + 1) + 4 * e + 4 * e * r + 2 * n * r * d * 4
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["nbytes"] / 3.35e12 * 1e3)
+
+
+def test_expected_hetero_launches_are_one_propagation_each_without_fixups():
+    """Each run propagates one block-diagonal batch: ``prop_steps``
+    products of the f32 kernel (the bf16 one for GraphSGC), and no row of
+    these graphs is long enough for the fix-up."""
+    k, kg = NARS_MODEL["prop_steps"], GRAPH_STEPS
+    assert (k, kg) == (3, 3)
+    none = {"f32": 0, "bf16": 0}
+    assert expected_hetero_launches() == {
+        "Fast NARS": dict(launches={"f32": 3, "bf16": 0}, fixups=none),
+        "NARS_SIGN": dict(launches={"f32": 3, "bf16": 0}, fixups=none),
+        "GraphSIGN": dict(launches={"f32": 3, "bf16": 0}, fixups=none),
+        "GraphSGC bf16": dict(launches={"f32": 0, "bf16": 3}, fixups=none),
+    }
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+def test_csr_bound_counts_one_pass_of_the_batch(elem):
+    n, e, d = 1_248_000, 29_548_000, 128
+    b = csr_bound(n, e, d, elem)
+    assert b["nbytes"] == 4 * (n + 1) + 8 * e + 2 * n * d * elem
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] == pytest.approx(b["nbytes"] / 3.35e12 * 1e3)

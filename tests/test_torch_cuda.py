@@ -613,3 +613,67 @@ def test_link_prediction_gae_on_the_card(cuda):
                              verbose=False)
     assert spmm_csr.launches["f32"] == before + 2
     assert task.test_roc_auc > 0.7, task.test_roc_auc
+
+
+# -- the NARS path and graph classification: card against the CPU path -------
+
+
+@pytest.mark.parametrize("name", ["Fast_NARS_SGC_WithLearnableWeights", "NARS_SIGN"])
+def test_nars_on_the_card_matches_the_cpu(cuda, name):
+    """One block-diagonal propagation of the relation subgraphs (two of
+    two relations, 2 hops): 2 launches of K1 and no fix-up; the same
+    subsets, features and logits from the same weights as the CPU path."""
+    from sgl_tpu_torch.datasets import SyntheticHeteroDataset
+    from sgl_tpu_torch.models import hetero
+
+    ds = SyntheticHeteroDataset(seed=1)
+    card, host = (getattr(hetero, name)(2, 16, ds.num_classes, 16, 2, 2) for _ in range(2))
+    before, fixups = spmm_csr.launches["f32"], spmm_csr.fixup_launches["f32"]
+    card.preprocess(ds, "paper", random_subgraph_num=2, subgraph_edge_type_num=2, device=cuda)
+    torch.cuda.synchronize()
+    assert (spmm_csr.launches["f32"] - before, spmm_csr.fixup_launches["f32"] - fixups) == (2, 0)
+    host.preprocess(ds, "paper", random_subgraph_num=2, subgraph_edge_type_num=2, device="cpu")
+    assert card.subgraph_keys == host.subgraph_keys
+    assert card.processed_feature.is_cuda
+    assert _rel_to_max(card.processed_feature.cpu(), host.processed_feature) <= TOL[torch.float32]
+    host.init(torch.Generator().manual_seed(0))
+    card.net.load_state_dict(host.net.state_dict())
+    card.net.to(cuda)
+    idx = torch.arange(0, ds.data.num_node["paper"], 2)
+    got = card.apply(idx.to(cuda)).detach().cpu()
+    assert _rel_to_max(got, host.apply(idx).detach()) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_graph_classification_on_the_card_matches_the_cpu(cuda, dtype):
+    """GraphSIGN (f32) or GraphSGC (bf16 precompute) over the batch of 200
+    graphs: 2 launches of K1 or K2, pooled features and logits as on the
+    CPU path."""
+    from sgl_tpu_torch.datasets import SyntheticGraphClassification
+    from sgl_tpu_torch.models import GraphSGC, GraphSIGN
+    from sgl_tpu_torch.tasks import GraphClassification
+
+    ds = SyntheticGraphClassification(200)
+    key = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+
+    def make():
+        if dtype == torch.float32:
+            return GraphSIGN(2, ds.num_features, ds.num_classes, hidden_dim=16)
+        return GraphSGC(2, ds.num_features, ds.num_classes, readout="max")
+
+    card, host = make(), make()
+    before = spmm_csr.launches[key]
+    card.preprocess(ds.batch(), dtype=dtype if key == "bf16" else None, device=cuda)
+    torch.cuda.synchronize()
+    assert spmm_csr.launches[key] == before + 2
+    host.preprocess(ds.batch(), dtype=dtype if key == "bf16" else None, device="cpu")
+    assert card.processed_feature.is_cuda and card.processed_feature.dtype == dtype
+    assert _rel_to_max(card.processed_feature.cpu(), host.processed_feature) <= TOL[dtype]
+    host.init(torch.Generator().manual_seed(0))
+    card.net.load_state_dict(host.net.state_dict())
+    card.net.to(cuda)
+    got = card.net(card.net_inputs()[0]).detach().cpu()
+    assert _rel_to_max(got, host.net(host.net_inputs()[0]).detach()) <= TOL[dtype]
+    task = GraphClassification(ds, make(), lr=0.05, weight_decay=5e-5, epochs=5, verbose=False,
+                               precompute_dtype=dtype if key == "bf16" else None)
+    assert 0.0 <= task.test_acc <= 1.0

@@ -11,7 +11,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("datasets", "dev", "examples", "graph", "kernels", "models", "ops", "tasks", "tricks", "utils")
+SUBPACKAGES = ("datasets", "dev", "etc", "examples", "graph", "kernels", "models", "ops", "tasks", "tricks", "utils")
 MODULES = [
     "sgl_tpu_torch", "sgl_tpu_torch.convert", "sgl_tpu_torch.kernels._build",
     "sgl_tpu_torch.examples.products_scale_demo", "sgl_tpu_torch.dev.exp_spmm",
@@ -23,7 +23,10 @@ MODULES = [
     "sgl_tpu_torch.tricks.correct_and_smooth", "sgl_tpu_torch.tasks.correct_and_smooth",
     "sgl_tpu_torch.tasks.node_classification_with_label_use", "sgl_tpu_torch.tasks.inference",
     "sgl_tpu_torch.tasks.clustering_metrics", "sgl_tpu_torch.tasks.node_clustering",
-    "sgl_tpu_torch.tasks.link_prediction", "chip_smoke",
+    "sgl_tpu_torch.tasks.link_prediction", "sgl_tpu_torch.graph.batch", "sgl_tpu_torch.datasets.choose_edge_type",
+    "sgl_tpu_torch.datasets.hetero_datasets", "sgl_tpu_torch.datasets.tu_dataset", "sgl_tpu_torch.models.hetero",
+    "sgl_tpu_torch.models.graph_level", "sgl_tpu_torch.tasks.hetero_node_classification",
+    "sgl_tpu_torch.tasks.graph_classification", "sgl_tpu_torch.etc.auto_select_edge_type_for_nars", "chip_smoke",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
 ]
