@@ -101,13 +101,33 @@ Phases; any failure raises and the script exits non-zero:
    epoch times and peak device memory; K1 and K2 at the NARS batch and at
    the graph-level batch against their twin, timed beside their bound and
    ``torch.sparse.mm``;
-10. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
+10. out of core (``sgl_tpu_torch/kernels/spmm_ooc.py``): every form on
+   a small graph (``random_power_law_graph(3_000, 8, 64, seed=0)``; 1-D,
+   2-D at ``src_blocks`` 1, 2 and 3, the resident executor; f32 and bf16)
+   against the port's CPU path and the one-shot ``spmm_csr``, two runs
+   bit-equal; then one hop on phase 5's products graph in each of 1-D f32,
+   2-D f32, 2-D bf16 and 2-D f32 at ``src_blocks=1``, and the resident
+   executor, each held against phase 5's streaming hop of its dtype (f32
+   also against phase 5's float64 sum) within ``ORDER_TOL``, its launches
+   held to ``expected_ooc_launches`` (one a part or non-empty cell, a
+   fix-up for each with a long row), with its layout, cold build and warm
+   cache load, transfer bytes, hop, ``null_transfer``, plain pinned
+   copies, the host's split of a hop, the overlap share and the card's
+   trace (counted only when complete), and its kernel launches alone, each
+   held against the plain twin on the same inputs (``TOL``), beside their
+   bound, the twin and ``torch.sparse.mm``; then
+   ``papers100m_pipeline.main`` at its defaults into a temporary store, its
+   launches held, the stored hops against ``GraphOp.propagate`` (K1) and a
+   float64 product, training from the store, peak device memory below the
+   hop stack's size;
+11. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
    (for K1–K4 and D2–D6 also the fix-up's; for K1/K2 also phase 7's, as
    ``zoo_launches``, and phase 9's, as ``hetero_launches``, with their
    times at the two phase-9 batches; for K1 also phase 8's, as
    ``label_launches``, with its label widths, its gradient and the NAFS
-   product), errors and times beside its bound;
-11. print ``{"ok": true, "device": {...}}`` as the last line.
+   product; for K3/K4 phase 10's, as ``ooc_launches``, with each form's
+   hop times), errors and times beside its bound;
+12. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
 to it, and exits non-zero without printing a result when either is missing.
@@ -116,6 +136,7 @@ to it, and exits non-zero without printing a result when either is missing.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -129,6 +150,7 @@ import torch
 # CUDA-event medians, (max abs, max rel) errors and the H100 SXM's published
 # HBM3 bandwidth: the helpers the ported dev/ harnesses time and compare with
 from sgl_tpu_torch.dev import HBM_BYTES_PER_S, rel_err, time_ms
+from sgl_tpu_torch.dev.ooc_probe import copy_ms, device_overlap, host_split
 
 # H100 SXM published f32 peak outside the tensor cores (NVIDIA data sheet;
 # the kernels sum in f32 for both dtypes)
@@ -631,7 +653,7 @@ def products_phase(dev):
     check(err <= TOL["f32"], f"small pipeline: CUDA hops vs the CPU path {err:.3e}")
     log(f"[5] small pipeline ({small}): CUDA hop stack vs the CPU path max rel err {err:.3e}")
 
-    results, graph = {}, None
+    results, graph, refs = {}, None, {}
     for key, dtype, train in (("f32", None, True), ("bf16", torch.bfloat16, False)):
         reset_launches()
         t = time.perf_counter()
@@ -683,10 +705,13 @@ def products_phase(dev):
         # the one-shot kernel on the same CSR: what the split costs on this card
         one_shot = spmm_csr(out["csr"], x)
         order_note = split_order_check(out["csr"], stack[1], one_shot, x, f"products {key}")
+        # phase 10 holds each out-of-core hop against this streaming hop
+        refs[key] = stack[1].cpu()
         if key == "f32":
             exact = f64_sum(parts, x)
             order_note += (f"; vs an f64 sum: streaming {rel_err(stack[1], exact)[1]:.3e}, one-shot "
                            f"{rel_err(one_shot, exact)[1]:.3e}")
+            refs["f64"] = exact.cpu()
             del exact
         del one_shot
         one_shot_ms = time_ms(lambda: spmm_csr(out["csr"], x), warmup=1, iters=3)
@@ -705,7 +730,7 @@ def products_phase(dev):
         )
         del out, stack, x, parts
         torch.cuda.empty_cache()
-    return results, graph
+    return results, graph, refs
 
 
 def reset_dev_launches() -> None:
@@ -1678,6 +1703,373 @@ def hetero_phase(dev) -> dict:
     return dict(launches=launches, times=times, runs=runs)
 
 
+# -- phase 10: out of core ---------------------------------------------------------
+
+# the small graph of phase 10's first part, and a part size that cuts it in ~7
+OOC_SMALL = dict(num_nodes=3_000, avg_degree=8, feat_dim=64, seed=0)
+OOC_SMALL_PART_EDGES = 4096
+OOC_SOURCE = "sgl_tpu_torch/kernels/spmm_ooc.py"
+# the TPU path's calls of its CSR kernel that the out-of-core forms replace
+OOC_REPLACES = {
+    "1d": "sgl_tpu/kernels/spmm_ooc.py:211",  # _ooc_step
+    "2d": "sgl_tpu/kernels/spmm_ooc.py:893",  # _ooc_step_2d, and _ooc_cell_2d at :921
+    "resident": "sgl_tpu/kernels/spmm_ooc.py:1310",  # _resident_class_scan
+}
+# the products hops of phase 10: (name, layout, dtype, src_blocks)
+OOC_FORMS = (
+    ("1d f32", "1d", "f32", None),
+    ("2d f32", "2d", "f32", "auto"),
+    ("2d bf16", "2d", "bf16", "auto"),
+    ("2d f32 src_blocks=1", "2d", "f32", 1),
+)
+
+
+def expected_ooc_launches(oc) -> tuple:
+    """One hop's (first-pass, fix-up) launches, worked out from the layout on
+    the host: a 1-D hop launches each part once, a 2-D hop (and the
+    resident executor) each non-empty cell once; each adds a fix-up where
+    the part or cell holds a row of more than ``SPLIT_NNZ`` nonzeros."""
+    from sgl_tpu_torch.kernels import OutOfCoreAdj
+
+    subs = [p.csr for p in oc.parts] if isinstance(oc, OutOfCoreAdj) else [c for row in oc.parts for c in row]
+    subs = [c for c in subs if c.nnz]
+    return len(subs), sum(c.counts[3] > 0 for c in subs)
+
+
+def ooc_small_graph(dev) -> None:
+    """Every out-of-core form on a small graph, f32 and bf16: on the card
+    against the port's CPU path of the same function and against the
+    one-shot ``spmm_csr``; two runs bit-equal."""
+    from sgl_tpu_torch.datasets import random_power_law_graph
+    from sgl_tpu_torch.graph import symmetric_normalized_weights, symmetric_normalized_weights_host
+    from sgl_tpu_torch.kernels import (
+        prepare_csr, prepare_out_of_core, prepare_out_of_core_2d, spmm_2d_resident, spmm_csr,
+        spmm_out_of_core, spmm_out_of_core_2d,
+    )
+
+    g = random_power_law_graph(**OOC_SMALL)
+    adj = symmetric_normalized_weights_host(g)
+    csr = prepare_csr(symmetric_normalized_weights(g, device=dev))
+    layouts = {"1d": prepare_out_of_core(adj, OOC_SMALL_PART_EDGES)}
+    for k in (1, 2, 3):
+        layouts[f"2d src_blocks={k}"] = prepare_out_of_core_2d(adj, OOC_SMALL_PART_EDGES, k, feat_dim=64)
+    x32 = torch.as_tensor(g.x)
+    for key, dtype in DTYPES.items():
+        x = x32.to(dtype)
+        one_shot = spmm_csr(csr, x.to(dev)).cpu()
+        worst = {"cpu": 0.0, "one-shot": 0.0}
+        for name, oc in layouts.items():
+            if name == "1d":
+                forms = [(name, lambda d_, oc=oc: spmm_out_of_core(oc, x, device=d_))]
+            else:
+                forms = [(name, lambda d_, oc=oc: spmm_out_of_core_2d(oc, x, device=d_, max_device_acc_bytes=1 << 20)),
+                         (f"resident {name}", lambda d_, oc=oc: spmm_2d_resident(oc, x.to(d_)).cpu())]
+            for fname, run in forms:
+                got = torch.as_tensor(run(dev))
+                torch.cuda.synchronize()
+                want = torch.as_tensor(run("cpu"))
+                where = f"[10] small graph {fname} {key}"
+                check(got.dtype == dtype and got.shape == x.shape and not got.is_cuda,
+                      f"{where}: {got.dtype} {tuple(got.shape)} {got.device}")
+                check(torch.isfinite(got.float()).all().item(), f"{where}: non-finite output")
+                e_cpu, e_one = rel_err(got, want)[1], rel_err(got, one_shot)[1]
+                check(e_cpu <= TOL[key], f"{where}: card vs the CPU path {e_cpu:.3e}")
+                check(e_one <= ORDER_TOL[key], f"{where}: vs one-shot spmm_csr {e_one:.3e}")
+                check_repeatable(lambda: torch.as_tensor(run(dev)), where)
+                worst = {"cpu": max(worst["cpu"], e_cpu), "one-shot": max(worst["one-shot"], e_one)}
+        log(f"[10] small graph ({OOC_SMALL}, parts of {OOC_SMALL_PART_EDGES}) {key}: 1-D "
+            f"({layouts['1d'].num_parts} parts), 2-D at src_blocks 1/2/3 and the resident executor: max rel "
+            f"err vs the CPU path {worst['cpu']:.3e} (limit {TOL[key]:.0e}), vs one-shot spmm_csr "
+            f"{worst['one-shot']:.3e} (limit {ORDER_TOL[key]:.0e}); two runs bit-equal")
+
+
+def describe_split(split: dict) -> str:
+    """The host's split of one hop (``host_split``), for the log line."""
+    steps = ", ".join(f"{k.strip()} {v:.4f}" for k, v in split["steps_s"].items())
+    return (f"the host's split of a hop {split['hop_s']:.4f} s: {steps}, the rest {split['rest_s']:.4f} s "
+            f"(into an output written before {split['pretouched_s']:.4f} s)")
+
+
+def describe_trace(t: dict) -> str:
+    """A hop's trace (``device_overlap``), for the log line: its numbers
+    only when it is complete."""
+    head = (f"{t['tries']} trace(s), the last {t['copies']} copies of {t['h2d_bytes'] / 1e9:.4f} + "
+            f"{t['d2h_bytes'] / 1e9:.4f} GB in {t['copy_sum_ms']:.4f} ms")
+    if not t["complete"]:
+        return head + ": incomplete (fewer bytes or less time than the plain copies), overlap not measured"
+    return (head + f": copies {t['copy_ms']:.4f} ms, kernels and memsets {t['compute_ms']:.4f} ms, busy "
+            f"{t['busy_ms']:.4f} ms, overlap share {t['overlap_share']:.4f}, idle share of the hop "
+            f"{t['idle_share']:.4f}")
+
+
+def ooc_launch_times(items, d: int, key: str) -> dict:
+    """K3/K4 at an out-of-core call site alone: each part's or cell's launch
+    on inputs already on the card, held against its plain twin on the same
+    inputs (each into a zeroed accumulator of its own, the worst relative
+    error within ``TOL[key]``), then timed (CUDA events) and summed; beside
+    it the plain twin's time and ``torch.sparse.mm`` on each part (its
+    duplicate entries summed), and the bound of the kernel's own bytes
+    (each part's rowptr, col and val, its workspace read once, its
+    accumulator rows read and written once).  ``items`` yields ``(CsrPart,
+    workspace, accumulator)``."""
+    from sgl_tpu_torch.kernels import spmm_csr_acc, spmm_csr_acc_reference
+
+    ms = plain = 0.0
+    lib, nbytes, nnz, errs = 0.0, 0, 0, (0.0, 0.0)
+    for part, ws, acc in items:
+        got = spmm_csr_acc(part, ws, torch.zeros_like(acc)).narrow(0, part.row_offset, part.num_rows)
+        want = spmm_csr_acc_reference(part, ws, torch.zeros_like(acc)).narrow(0, part.row_offset, part.num_rows)
+        err = rel_err(got, want)
+        check(err[1] <= TOL[key], f"[10] {key} part or cell at row {part.row_offset}: kernel vs its plain "
+                                  f"twin {err[1]:.3e}")
+        errs = (max(errs[0], err[0]), max(errs[1], err[1]))
+        del got, want
+        ms += time_ms(lambda: spmm_csr_acc(part, ws, acc), warmup=1, iters=5)
+        plain += time_ms(lambda: spmm_csr_acc_reference(part, ws, acc), warmup=0, iters=1)
+        if lib is not None:
+            try:
+                # duplicate entries summed first: cuSPARSE refuses a part whose
+                # entries outnumber its rows x columns (the graph has multi-edges)
+                rows = torch.repeat_interleave(torch.arange(part.num_rows, device=ws.device),
+                                               torch.diff(part.rowptr.long()))
+                a = torch.sparse_coo_tensor(torch.stack([rows, part.col.long()]), part.val.to(ws.dtype),
+                                            (part.num_rows, ws.shape[0])).coalesce().to_sparse_csr()
+                lib += time_ms(lambda: torch.sparse.mm(a, ws), warmup=1, iters=5)
+            except (RuntimeError, NotImplementedError):  # the yardstick only
+                lib = None
+        nbytes += 4 * (part.num_rows + 1) + 8 * part.nnz + ws.numel() * ws.element_size() + 2 * part.num_rows * d * 4
+        nnz += part.nnz
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, kernel_bytes=nbytes, max_abs_err=errs[0],
+                max_rel_err=errs[1], **bound(nbytes, nnz, d))
+
+
+def ooc_items(oc, x_dev, dev):
+    """``(CsrPart, workspace, accumulator)`` for each part (1-D, its
+    workspace gathered on the card) or non-empty cell (2-D) of a layout
+    whose edges the last hop left on the card."""
+    from sgl_tpu_torch.kernels import OutOfCoreAdj
+    from sgl_tpu_torch.kernels.spmm_ooc import _upload
+
+    d = x_dev.shape[1]
+    if isinstance(oc, OutOfCoreAdj):
+        for i, p in enumerate(oc.parts):
+            if p.csr.nnz:
+                part = oc._dev_edges.get(i) or _upload(p.csr, dev, p.cols.shape[0])
+                ws = x_dev.index_select(0, torch.as_tensor(p.cols, device=dev).long())
+                yield part, ws, torch.zeros((p.num_rows, d), device=dev)
+        return
+    for p, row in enumerate(oc.parts):
+        acc = torch.zeros((oc.valid_rows[p], d), device=dev)
+        for b, c in enumerate(row):
+            if c.nnz:
+                lo, rows = oc.block_range(b)
+                part = oc._dev_edges.get((p, b)) or _upload(c, dev, rows)
+                yield part, x_dev.narrow(0, lo, rows), acc
+
+
+def ooc_products_phase(dev, graph, refs) -> dict:
+    """One out-of-core hop of each form on phase 5's products graph, held
+    against phase 5's streaming hop of the same dtype (and f32 against its
+    float64 sum); its layout, cold build and warm cache load, transfer
+    bytes, hop time, ``null_transfer`` time, plain pinned copies, the
+    host's split of a hop, the overlap shares and each part's or cell's
+    launch against its plain twin; then the resident executor."""
+    from sgl_tpu_torch.graph import symmetric_normalized_weights_host
+    from sgl_tpu_torch.kernels import (
+        hop_transfer_bytes, load_out_of_core_2d, prepare_out_of_core, prepare_out_of_core_2d,
+        spmm_2d_resident, spmm_out_of_core, spmm_out_of_core_2d,
+    )
+    t = time.perf_counter()
+    adj = symmetric_normalized_weights_host(graph)
+    norm_s = time.perf_counter() - t
+    ref = {k: v.to(dev) for k, v in refs.items()}
+    x32 = torch.as_tensor(graph.x)
+    n, d = x32.shape
+    results, resident_layout = {}, None
+    for name, layout, key, blocks in OOC_FORMS:
+        dtype = DTYPES[key]
+        x_host = x32.numpy() if key == "f32" else x32.to(dtype)
+        elem = torch.empty((), dtype=dtype).element_size()
+        with tempfile.TemporaryDirectory() as cache:
+            t = time.perf_counter()
+            if layout == "1d":
+                oc = prepare_out_of_core(adj, PRODUCTS["part_edges"])
+                cold, warm, open_s = time.perf_counter() - t, None, None
+                spmm = spmm_out_of_core
+                shape = (f"{oc.num_parts} parts, workspaces {sum(oc.workspace_rows)} rows "
+                         f"({sum(oc.workspace_rows) / n:.3f} feature volumes)")
+            else:
+                kw = dict(src_blocks=blocks, feat_dim=d, feat_dtype=dtype, cache_dir=cache)
+                built = prepare_out_of_core_2d(adj, PRODUCTS["part_edges"], **kw)
+                cold = time.perf_counter() - t
+                t = time.perf_counter()
+                oc = prepare_out_of_core_2d(adj, PRODUCTS["part_edges"], **kw)  # from the cache
+                warm = time.perf_counter() - t
+                (entry,) = os.listdir(cache)
+                t = time.perf_counter()
+                load_out_of_core_2d(os.path.join(cache, entry))
+                open_s = time.perf_counter() - t
+                check(oc.num_cells == built.num_cells and oc.row_offsets == built.row_offsets,
+                      f"{name}: the cached layout differs from the built one")
+                if name == "2d f32":
+                    resident_layout = built
+                spmm = spmm_out_of_core_2d
+                shape = (f"{oc.num_parts} parts x {oc.num_blocks} blocks of {oc.block_rows} rows, "
+                         f"{oc.num_cells} non-empty cells")
+            h2d, d2h = hop_transfer_bytes(oc, d, elem)
+            want = expected_ooc_launches(oc)
+            acc_key = "acc_" + key
+            y, first_s, *_ = run_counted(f"products {name}", lambda: spmm(oc, x_host, device=dev),
+                                         {acc_key: want[0]}, {acc_key: want[1]}, "10")
+            y_dev = torch.as_tensor(y).to(dev)
+            check(y_dev.dtype == dtype and tuple(y_dev.shape) == (n, d), f"{name}: {y_dev.dtype} {tuple(y_dev.shape)}")
+            check(torch.isfinite(y_dev.float()).all().item(), f"{name}: non-finite hop")
+            e_stream = rel_err(y_dev, ref[key])[1]
+            check(e_stream <= ORDER_TOL[key], f"products {name}: vs phase 5's streaming hop {e_stream:.3e}")
+            e64 = rel_err(y_dev, ref["f64"])[1] if key == "f32" else None
+            check(e64 is None or e64 <= ORDER_TOL["f32"], f"products {name}: vs phase 5's float64 sum {e64}")
+            del y_dev
+            t = time.perf_counter()
+            spmm(oc, x_host, device=dev)
+            hop_s = time.perf_counter() - t
+            spmm(oc, x_host, device=dev, null_transfer=True)
+            t = time.perf_counter()
+            spmm(oc, x_host, device=dev, null_transfer=True)
+            null_s = time.perf_counter() - t
+            split = host_split(spmm, oc, x_host, dev)
+            h2d_ms, d2h_ms = copy_ms(h2d, True, dev), copy_ms(d2h, False, dev)
+            copy_s = (h2d_ms + d2h_ms) / 1e3
+            overlap = (copy_s + null_s - hop_s) / min(copy_s, null_s)
+            traced = device_overlap(lambda: spmm(oc, x_host, device=dev), (h2d, d2h), h2d_ms + d2h_ms, hop_s * 1e3)
+            x_dev = (torch.from_numpy(x_host) if key == "f32" else x_host).to(dev)
+            kt = ooc_launch_times(ooc_items(oc, x_dev, dev), d, key)
+            del x_dev
+            nnz_all = int(adj.w.count_nonzero())
+            log(f"[10] products {name}: {shape}; normalize on the host {norm_s:.4f} s; layout cold build "
+                f"{cold:.4f} s" + (f", warm cache load {warm:.4f} s (opening its files {open_s:.4f} s, the "
+                                   f"rest the content key's hash of the edges)" if warm is not None else "")
+                + f"; launches {want[0]} + {want[1]} fix-ups a hop (held); H2D {h2d / 1e9:.4f} GB, D2H "
+                f"{d2h / 1e9:.4f} GB a hop; first hop {first_s:.4f} s, hop {hop_s:.4f} s "
+                f"({nnz_all / hop_s / 1e9:.4f} G nonzeros/s); null_transfer {null_s:.4f} s; plain pinned "
+                f"copy_ H2D {h2d_ms:.4f} ms ({h2d / h2d_ms / 1e6:.2f} GB/s), D2H {d2h_ms:.4f} ms "
+                f"({d2h / d2h_ms / 1e6:.2f} GB/s); overlap share "
+                f"{overlap:.4f}; {describe_split(split)}; on the card (torch.profiler) {describe_trace(traced)}"
+                + f"; each part or cell's launch vs its plain twin max rel err {kt['max_rel_err']:.3e} (limit "
+                f"{TOL[key]:.0e}); the hop vs phase 5's streaming hop {e_stream:.3e} (limit "
+                f"{ORDER_TOL[key]:.0e})" + (f", vs its float64 sum {e64:.3e}" if e64 is not None else "")
+                + f"; {acc_key} launches alone {kt['ms']:.4f} ms (plain twin {kt['plain_ms']:.4f} ms, "
+                f"torch.sparse.mm on each part {kt['library_ms']}, bound {kt['bound_ms']:.4f} ms: "
+                f"{kt['kernel_bytes'] / 1e9:.4f} GB at 3.35 TB/s)")
+            results[name] = dict(
+                key=key, replaces=OOC_REPLACES[layout], launches=want[0], fixup_launches=want[1],
+                parts=oc.num_parts, cells=getattr(oc, "num_cells", oc.num_parts),
+                blocks=getattr(oc, "num_blocks", None), cold_build_s=cold, warm_load_s=warm, open_s=open_s,
+                h2d_bytes=h2d, d2h_bytes=d2h, first_hop_s=first_s, hop_s=hop_s, null_transfer_s=null_s,
+                h2d_copy_ms=h2d_ms, d2h_copy_ms=d2h_ms, overlap_share=overlap,
+                host_split=split, device_overlap=traced,
+                rel_err_stream=e_stream, rel_err_f64=e64, transfer_ms=h2d_ms + d2h_ms, **kt,
+            )
+            del oc, y
+    # the resident executor: x on the card, the 2-D f32 layout's cells
+    x_dev = x32.to(dev)
+    want = expected_ooc_launches(resident_layout)
+    y = run_counted("products resident", lambda: spmm_2d_resident(resident_layout, x_dev),
+                    {"acc_f32": want[0]}, {"acc_f32": want[1]}, "10")[0]
+    e_stream = rel_err(y, ref["f32"])[1]
+    e64 = rel_err(y, ref["f64"])[1]
+    check(e_stream <= ORDER_TOL["f32"] and e64 <= ORDER_TOL["f32"],
+          f"products resident: vs phase 5's streaming hop {e_stream:.3e}, float64 {e64:.3e}")
+    call_ms = time_ms(lambda: spmm_2d_resident(resident_layout, x_dev), warmup=1, iters=5)
+    y_acc = torch.zeros((n, d), device=dev)
+    items = ((part, x_dev.narrow(0, *resident_layout.block_range(b)), y_acc)
+             for b, part in resident_layout._dev_stacks[x_dev.device])
+    kt = ooc_launch_times(items, d, "f32")
+    log(f"[10] products resident (spmm_2d_resident, f32, {resident_layout.num_cells} cells): launches "
+        f"{want[0]} + {want[1]} fix-ups (held); call {call_ms:.4f} ms; each cell's launch vs its plain twin "
+        f"{kt['max_rel_err']:.3e} (limit {TOL['f32']:.0e}); the call vs phase 5's streaming hop "
+        f"{e_stream:.3e}, vs its float64 sum {e64:.3e}; acc_f32 launches alone {kt['ms']:.4f} ms (plain twin "
+        f"{kt['plain_ms']:.4f} ms, torch.sparse.mm on each cell {kt['library_ms']}, bound "
+        f"{kt['bound_ms']:.4f} ms)")
+    results["resident f32"] = dict(key="f32", replaces=OOC_REPLACES["resident"], launches=want[0],
+                                   fixup_launches=want[1], call_ms=call_ms, rel_err_stream=e_stream,
+                                   rel_err_f64=e64, **kt)
+    del ref, x_dev, y, y_acc
+    torch.cuda.empty_cache()
+    return results
+
+
+def papers_phase(dev) -> dict:
+    """``papers100m_pipeline.main`` at its defaults into a temporary store,
+    its launches held; the stored hops against ``GraphOp.propagate`` of the
+    same graph on the card (K1) and, f32, each against a float64 product of
+    the one before; training from the store; its peak device memory beside
+    the size of the hop stack."""
+    from sgl_tpu_torch.datasets import SyntheticPowerLaw
+    from sgl_tpu_torch.examples import papers100m_pipeline
+    from sgl_tpu_torch.graph import symmetric_normalized_weights_host
+    from sgl_tpu_torch.kernels import prepare_out_of_core_2d
+    from sgl_tpu_torch.ops import LaplacianGraphOp
+
+    # the launches to expect, from the pipeline's layout built on the host first
+    args = papers100m_pipeline.parse_args([])
+    graph = SyntheticPowerLaw(num_nodes=args.nodes, avg_degree=args.avg_deg, feat_dim=args.d,
+                              num_classes=args.classes, seed=0).graph
+    layout = prepare_out_of_core_2d(symmetric_normalized_weights_host(graph), args.part_edges,
+                                    args.src_blocks, feat_dim=args.d)
+    per_hop = expected_ooc_launches(layout)
+    # what earlier phases left allocated: the pipeline's own peak is above it
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, _, counts, fixups, peak = run_counted(
+            "papers100m pipeline", lambda: papers100m_pipeline.main(["--store", f"{tmp}/store"]),
+            {"acc_f32": args.hops * per_hop[0]}, {"acc_f32": args.hops * per_hop[1]}, "10")
+        oc = out["layout"]
+        check(oc.num_cells == layout.num_cells and oc.row_offsets == layout.row_offsets,
+              "papers100m pipeline: its layout differs from the one built first")
+        ds, sink, task = out["dataset"], out["sink"], out["task"]
+        peak, precompute_peak = peak - base, out["precompute_peak_bytes"] - base
+        n, d = ds.num_node, ds.num_features
+        stack_bytes = (args.hops + 1) * n * d * 4
+        check(peak < stack_bytes, f"papers100m pipeline: peak {peak} bytes, the hop stack {stack_bytes}")
+        op = LaplacianGraphOp(args.hops)
+        in_memory = op.propagate(ds.graph, ds.x, device=dev)
+        csr = op._adj_for(ds.graph, dev)
+        stored = [torch.from_numpy(np.load(sink.path(k))).to(dev) for k in range(args.hops + 1)]
+        e_k1 = max(rel_err(stored[k], in_memory[k])[1] for k in range(1, args.hops + 1))
+        e64 = max(rel_err(stored[k], f64_sum(csr, stored[k - 1]))[1] for k in range(1, args.hops + 1))
+        check(e_k1 <= TOL["f32"], f"papers100m pipeline: stored hops vs GraphOp.propagate {e_k1:.3e}")
+        check(e64 <= F64_TOL, f"papers100m pipeline: stored hops vs a float64 product {e64:.3e}")
+        check(all(np.isfinite(task.train_losses)), f"papers100m losses {task.train_losses}")
+        log(f"[10] papers100m pipeline (defaults: {n} nodes, avg degree {args.avg_deg}, d={d}, "
+            f"{ds.num_classes} classes, GAMLP hidden 256 x 3 layers, {args.hops} hops, batch {args.batch}, "
+            f"{args.epochs} epochs): layout {oc.num_parts} parts x {oc.num_blocks} blocks ({oc.num_cells} cells); "
+            f"its peak device memory by the end of the precompute {precompute_peak / 1e9:.4f} GB; "
+            f"launches {counts['acc_f32']} + {fixups['acc_f32']} fix-ups (held: {args.hops} x {per_hop}); "
+            f"ingest {out['ingest_seconds']:.4f} s; precompute {out['precompute_seconds'] / args.hops:.4f} s/hop; "
+            f"store {out['store_bytes'] / 1e9:.4f} GB; epochs {[round(v, 4) for v in task.epoch_seconds]} s; "
+            f"losses {[round(v, 4) for v in task.train_losses]}; test acc {task.test_acc:.4f}; its peak device "
+            f"memory {peak / 1e9:.4f} GB = {peak / stack_bytes:.4f} of the {stack_bytes / 1e9:.4f} GB hop stack "
+            f"(above the {base / 1e9:.4f} GB earlier phases hold); "
+            f"stored hops vs GraphOp.propagate (K1) {e_k1:.3e} (limit {TOL['f32']:.0e}), vs a float64 "
+            f"product {e64:.3e} (limit {F64_TOL:.0e})")
+        result = dict(launches=counts["acc_f32"], fixup_launches=fixups["acc_f32"],
+                      precompute_s_per_hop=out["precompute_seconds"] / args.hops, store_bytes=out["store_bytes"],
+                      epoch_s=task.epoch_seconds, test_acc=task.test_acc, peak_bytes=peak,
+                      precompute_peak_bytes=precompute_peak,
+                      stack_bytes=stack_bytes, max_rel_err=e_k1, rel_err_f64=e64)
+        del out, in_memory, stored, task, ds, sink, csr, oc
+    torch.cuda.empty_cache()
+    return result
+
+
+def ooc_phase(dev, graph, refs) -> dict:
+    """Phase 10: the small graph, the products hops and the papers100M
+    pipeline."""
+    ooc_small_graph(dev)
+    products = ooc_products_phase(dev, graph, refs)
+    return {"products": products, "papers": papers_phase(dev)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs one GPU", file=sys.stderr)
@@ -1730,13 +2122,14 @@ def main() -> int:
     launches, main_errs = phase("3", main_path_phase, dev)
     phase("3 small graph", reference_check_phase, dev)
     stream_bench = phase("4", streaming_bench_phase, dev, bench)
-    products, products_graph = phase("5", products_phase, dev)
+    products, products_graph, products_refs = phase("5", products_phase, dev)
     dev_launches, dev_results = phase("6", dev_phase, dev)
     zoo_launches = phase("7", zoo_phase, dev, products_graph)
     label = phase("8", label_phase, dev)
     hetero = phase("9", hetero_phase, dev)
+    ooc = phase("10", ooc_phase, dev, products_graph, products_refs)
     print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products,
-                                  dev_launches, dev_results, zoo_launches, label, hetero)))
+                                  dev_launches, dev_results, zoo_launches, label, hetero, ooc)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
@@ -1744,7 +2137,7 @@ def main() -> int:
 
 
 def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
-                 zoo_launches, label, hetero) -> dict:
+                 zoo_launches, label, hetero, ooc) -> dict:
     kernels = []
     for key in ("f32", "bf16"):
         r = bench[key]
@@ -1773,16 +2166,27 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
                  nars_batch=hetero["times"]["nars"][key], graph_batch=hetero["times"]["graph"][key])
     for key in ("f32", "bf16"):
         p, sb = products[key], stream_bench[key]
+        # phase 10, the out-of-core call sites, apart from the main path: each
+        # form's launches a hop (held), its launches held against the plain
+        # twin, and its hop times, one products hop
+        forms = {name: r for name, r in ooc["products"].items() if r["key"] == key}
         kernels.append({
             "name": f"spmm_csr_acc_{key}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES_ACC, "launches": p["launches"], "fixup_launches": p.get("fixup_launches"),
-            # the larger error of the two shapes checked (bench and products)
-            "max_abs_err": max(p["abs_err"], sb["abs_err"]),
-            "max_rel_err": max(p["rel_err"], sb["rel_err"]),
+            # the largest error of the shapes checked (bench, products and
+            # each out-of-core form's parts or cells)
+            "max_abs_err": max(p["abs_err"], sb["abs_err"], *(r["max_abs_err"] for r in forms.values())),
+            "max_rel_err": max(p["rel_err"], sb["rel_err"], *(r["max_rel_err"] for r in forms.values())),
             # one hop at products scale: every part's launch, summed
             "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": p["bound_by"], "library_ms": p["library_ms"], "shape": "products",
         })
+        kernels[-1]["ooc_launches"] = {name: [r["launches"], r["fixup_launches"]] for name, r in forms.items()}
+        kernels[-1]["ooc"] = forms
+        if key == "f32":
+            kernels[-1]["ooc_launches"]["papers100m pipeline"] = [ooc["papers"]["launches"],
+                                                                  ooc["papers"]["fixup_launches"]]
+            kernels[-1]["papers100m"] = ooc["papers"]
     for key, r in dev_results.items():
         gather = key == "gather_sum"
         kernels.append({

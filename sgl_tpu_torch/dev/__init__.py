@@ -9,7 +9,10 @@
 * :mod:`sgl_tpu_torch.dev.tune_spmm_csr` — the CSR SpMM kernel's design
   constants, each timed against other values (the card only);
 * :mod:`sgl_tpu_torch.dev.tune_segment_reduce` — the same for the
-  segment-reduce kernel's.
+  segment-reduce kernel's;
+* :mod:`sgl_tpu_torch.dev.ooc_probe` — where an out-of-core hop's time
+  goes: the host's share by step and the card's trace, checked for
+  completeness (``chip_smoke.py`` phase 10 uses its helpers).
 
 Each runs on the GPU unless ``--device cpu`` is given, and imports nothing
 of JAX, ``sgl_tpu`` or ``dev/``.  Times are CUDA events on the card and the

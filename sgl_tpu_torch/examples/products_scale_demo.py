@@ -12,14 +12,20 @@ GAMLP on the hop stack with the reference's ogbn-products recipe (hidden
 runs one eval forward over every node.
 
     python -m sgl_tpu_torch.examples.products_scale_demo [--bf16] [--train]
+    python -m sgl_tpu_torch.examples.products_scale_demo --ooc [--2d] [--bf16]
+
+With ``--ooc`` the features, the hops and the edges stay in host memory
+(``kernels/spmm_ooc.py``): the graph is normalized on the host
+(``symmetric_normalized_weights_host``), laid out into out-of-core parts
+(``--2d``: the src-block layout) and each hop streams through the card; it
+prints the layout, each hop's seconds, the steady seconds a hop and the G
+nonzeros/s.  This is the papers100M regime at products scale.
 
 It runs on the GPU; :func:`main` takes ``device="cpu"`` for small runs on
-the CPU.  Hops and training steps are timed with CUDA events on the card
-(the host clock on the CPU).
-
-Not ported yet (ROADMAP, out-of-core item): the JAX demo's native host
-normalization (``symmetric_normalized_weights_host``) and its ``--ooc``
-mode.  Normalization here runs on the device.
+the CPU.  In-memory hops and training steps are timed with CUDA events on
+the card (the host clock on the CPU); an out-of-core hop, which includes
+host work, by the host clock around a call that returns with its result
+on the host.
 """
 
 from __future__ import annotations
@@ -33,8 +39,16 @@ import torch
 
 from sgl_tpu_torch.datasets import random_power_law_graph
 from sgl_tpu_torch.device import resolve_device
-from sgl_tpu_torch.graph import symmetric_normalized_weights
-from sgl_tpu_torch.kernels import prepare_csr, prepare_csr_parts, spmm_csr_streaming
+from sgl_tpu_torch.graph import symmetric_normalized_weights, symmetric_normalized_weights_host
+from sgl_tpu_torch.kernels import (
+    prepare_csr,
+    prepare_csr_parts,
+    prepare_out_of_core,
+    prepare_out_of_core_2d,
+    spmm_csr_streaming,
+    spmm_out_of_core,
+    spmm_out_of_core_2d,
+)
 from sgl_tpu_torch.models import GAMLP
 from sgl_tpu_torch.tasks.utils import adam_l2, make_eval_step, make_train_step
 
@@ -120,6 +134,45 @@ def train_at_scale(
     }
 
 
+def main_ooc(g, d: int, hops: int, part_edges: int, dtype, device, layout: str = "1d",
+             src_blocks="auto") -> dict:
+    """Out-of-core mode (``--ooc``): normalize on the host, lay the graph out
+    (``layout="2d"``: the src-block layout, ``src_blocks`` blocks), then run
+    ``hops`` hops with ``x``, ``y`` and the edges in host memory.
+
+    Returns ``hops`` (host arrays: numpy f32, or CPU tensors for bf16),
+    ``hop_seconds``, ``layout``, ``nnz`` (of the normalized adjacency,
+    self-loops included) and ``prepare_seconds`` (normalize + layout).
+    """
+    t0 = time.perf_counter()
+    adj = symmetric_normalized_weights_host(g)
+    nnz = int(adj.w.count_nonzero())
+    x = torch.as_tensor(g.x).to(dtype or torch.float32)
+    if layout == "2d":
+        oc = prepare_out_of_core_2d(adj, max_edges_per_part=part_edges, src_blocks=src_blocks,
+                                    feat_dim=d, feat_dtype=x.dtype)
+        spmm = spmm_out_of_core_2d
+        shape = f"{oc.num_parts} parts x {oc.num_blocks} blocks ({oc.num_cells} non-empty cells)"
+    else:
+        oc = prepare_out_of_core(adj, max_edges_per_part=part_edges)
+        spmm = spmm_out_of_core
+        shape = f"{oc.num_parts} parts (workspaces {sum(oc.workspace_rows)} rows)"
+    prepare_seconds = time.perf_counter() - t0
+    print(f"normalized on the host + {layout} out-of-core layout: {shape} ({prepare_seconds:.4f}s)")
+    if x.dtype == torch.float32:
+        x = x.numpy()
+    out, times = [x], []
+    for k in range(hops):
+        t = time.perf_counter()
+        out.append(spmm(oc, out[-1], device=device))
+        times.append(time.perf_counter() - t)
+        print(f"hop {k + 1} done ({sum(times):.4f}s cumulative)")
+    steady = min(times[1:]) if len(times) > 1 else times[0]
+    print(f"out-of-core precompute: first hop {times[0]:.4f}s, steady {steady:.4f}s/hop -> "
+          f"{nnz / steady / 1e9:.4f} G nonzeros/s (host<->device streamed)")
+    return {"hops": out, "hop_seconds": times, "layout": oc, "nnz": nnz, "prepare_seconds": prepare_seconds}
+
+
 def main(
     n: int = 2_400_000,
     avg_deg: int = 25,
@@ -129,9 +182,13 @@ def main(
     dtype: Optional[torch.dtype] = None,
     train: bool = False,
     device=None,
+    ooc: bool = False,
+    layout: str = "1d",
 ) -> dict:
     """Build the graph, normalize, split, run ``hops`` streaming hops and,
     with ``train``, train GAMLP on the stack.  ``device=None`` is the GPU.
+    With ``ooc`` the hops run out of core instead (:func:`main_ooc`, its
+    keys and ``graph``, ``graph_seconds``).
 
     Returns ``hops`` (the ``(hops+1, n, d)`` stack in ``dtype``, f32 by
     default), ``hop_seconds``, ``csr`` (the normalized
@@ -149,6 +206,9 @@ def main(
     g = random_power_law_graph(n, avg_deg, d, seed=0, pad_multiple=1 << 20)
     graph_seconds = time.perf_counter() - t0
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges ({graph_seconds:.4f}s to generate)")
+    if ooc:
+        out = main_ooc(g, d, hops, part_edges, dtype, device, layout)
+        return dict(out, graph=g, graph_seconds=graph_seconds)
 
     t0 = time.perf_counter()
     csr = prepare_csr(symmetric_normalized_weights(g, device=device))
@@ -191,5 +251,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bf16", action="store_true", help="bf16 features and hops")
     ap.add_argument("--train", action="store_true", help="train GAMLP on the hop stack")
+    ap.add_argument("--ooc", action="store_true", help="features, hops and edges in host memory")
+    ap.add_argument("--2d", dest="two_d", action="store_true", help="with --ooc: the src-block layout")
     args = ap.parse_args()
-    main(dtype=torch.bfloat16 if args.bf16 else None, train=args.train)
+    main(dtype=torch.bfloat16 if args.bf16 else None, train=args.train, ooc=args.ooc,
+         layout="2d" if args.two_d else "1d")

@@ -1,8 +1,9 @@
 // Native host-side graph builder of sgl_tpu_torch.
 //
 // What stays on the host when a graph is built: sorting its edges by
-// destination, summing degrees and producing normalized edge weights, and
-// gathering rows of a host array.  numpy's sorts are single-threaded; this
+// destination, summing degrees and producing normalized edge weights,
+// gathering rows of a host array, and sorting edges into the cells of the
+// 2-D out-of-core layout.  numpy's sorts are single-threaded; this
 // library does an OpenMP-parallel counting sort keyed on dst plus parallel
 // degree and normalization passes.  Built with g++ at first use and loaded
 // with ctypes by sgl_tpu_torch/graph/native.py, which keeps a numpy
@@ -15,6 +16,9 @@
 //   sgl_gather_rows(x, row_bytes, idx, n_idx, out)               // out[i] = x[idx[i]]
 //   sgl_normalized_weights(src, dst, val, n_edges, deg, r, out_w)
 //       // w_e = deg[dst_e]^(r-1) * val_e * deg[src_e]^(-r), 0 where deg==0
+//   sgl_classify_sort_cells_2d(src, dst, w, n, sb, k, part_of_row,
+//                              n_keys, o_src, o_dst, o_w, o_cell_counts)
+//       // stable counting sort by cell key part_of_row[dst]*k + src/sb
 
 #include <cmath>
 #include <cstdint>
@@ -121,6 +125,66 @@ void sgl_normalized_weights(const int32_t* src, const int32_t* dst,
       out_w[e] = std::pow(dd, r - 1.0f) * val[e] * std::pow(ds, -r);
     } else {
       out_w[e] = 0.0f;
+    }
+  }
+}
+
+// Classify and stably sort edges by the cell of the 2-D out-of-core layout
+// (kernels/spmm_ooc.py): cell key part_of_row[dst] * k + src / sb, the
+// destination part times the src-block count plus the src block.  The key
+// is computed on the fly from the per-row part table, so the caller never
+// materializes per-edge part, block or key arrays.  Two
+// parallel passes as in sgl_sort_edges_by_dst: per-thread histograms, then
+// a scatter in which each thread's contiguous, ordered range keeps the
+// input order inside a cell (dst order when the input is dst-sorted).
+// Emits the cell-sorted (src, dst, w) and the per-cell counts.
+void sgl_classify_sort_cells_2d(const int32_t* src, const int32_t* dst,
+                                const float* w, int64_t n, int32_t sb,
+                                int32_t k, const int32_t* part_of_row,
+                                int32_t n_keys, int32_t* o_src,
+                                int32_t* o_dst, float* o_w,
+                                int64_t* o_cell_counts) {
+  const int n_threads = omp_get_max_threads();
+  const int64_t nk = static_cast<int64_t>(n_keys);
+  std::vector<int64_t> hist(static_cast<size_t>(n_threads) * nk, 0);
+
+#pragma omp parallel
+  {
+    const int t = omp_get_thread_num();
+    int64_t* h = hist.data() + static_cast<int64_t>(t) * nk;
+#pragma omp for schedule(static)
+    for (int64_t e = 0; e < n; ++e) {
+      ++h[static_cast<int64_t>(part_of_row[dst[e]]) * k + src[e] / sb];
+    }
+  }
+
+  for (int64_t b = 0; b < nk; ++b) {
+    int64_t total = 0;
+    for (int t = 0; t < n_threads; ++t) {
+      total += hist[static_cast<int64_t>(t) * nk + b];
+    }
+    o_cell_counts[b] = total;
+  }
+  int64_t running = 0;
+  for (int64_t b = 0; b < nk; ++b) {
+    for (int t = 0; t < n_threads; ++t) {
+      int64_t& h = hist[static_cast<int64_t>(t) * nk + b];
+      const int64_t count = h;
+      h = running;
+      running += count;
+    }
+  }
+
+#pragma omp parallel
+  {
+    const int t = omp_get_thread_num();
+    int64_t* h = hist.data() + static_cast<int64_t>(t) * nk;
+#pragma omp for schedule(static)
+    for (int64_t e = 0; e < n; ++e) {
+      const int64_t pos = h[static_cast<int64_t>(part_of_row[dst[e]]) * k + src[e] / sb]++;
+      o_src[pos] = src[e];
+      o_dst[pos] = dst[e];
+      o_w[pos] = w[e];
     }
   }
 }

@@ -2,7 +2,8 @@
 
 Counterpart of ``sgl_tpu/graph/native.py`` for what the port's graph layer
 needs: the stable sort of edges by destination, degrees, normalized
-weights and a parallel row gather, all on the host.  The library is the
+weights, a parallel row gather and the sort of edges into the cells of the
+2-D out-of-core layout, all on the host.  The library is the
 port's own copy of those C++ functions, built at first use with
 ``g++ -O3 -fopenmp -shared -fPIC`` into ``sgl_tpu_torch/_build/``
 (``kernels/_build.py::build_host``).  Every entry point keeps a numpy
@@ -39,7 +40,12 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.sgl_compute_degrees.argtypes = [i32, f32, ctypes.c_int64, ctypes.c_int32, f32]
     lib.sgl_normalized_weights.argtypes = [i32, i32, f32, ctypes.c_int64, f32, ctypes.c_float, f32]
     lib.sgl_gather_rows.argtypes = [ctypes.c_void_p, ctypes.c_int64, i32, ctypes.c_int64, ctypes.c_void_p]
-    for fn in ("sgl_sort_edges_by_dst", "sgl_compute_degrees", "sgl_normalized_weights", "sgl_gather_rows"):
+    i64 = ctl.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.sgl_classify_sort_cells_2d.argtypes = [
+        i32, i32, f32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, i32, ctypes.c_int32, i32, i32, f32, i64,
+    ]
+    for fn in ("sgl_sort_edges_by_dst", "sgl_compute_degrees", "sgl_normalized_weights", "sgl_gather_rows",
+               "sgl_classify_sort_cells_2d"):
         getattr(lib, fn).restype = None
     return lib
 
@@ -130,6 +136,35 @@ def gather_rows(x: np.ndarray, idx: np.ndarray, out: Optional[np.ndarray] = None
         out.ctypes.data_as(ctypes.c_void_p),
     )
     return out
+
+
+def classify_sort_cells_2d(src, dst, w, sb: int, k: int, part_of_row):
+    """Sort edges by the cell of the 2-D out-of-core layout, stably: cell key
+    ``part_of_row[dst] * k + src // sb`` (the edge's destination part times
+    the block count ``k``, plus its source block of ``sb`` rows).  Inside a
+    cell the input order is kept, so dst-sorted input stays dst order.
+    Returns ``(src, dst, w, cell_counts)`` in cell order, ``cell_counts``
+    int64 of ``(part_of_row[-1] + 1) * k`` cells (fallback: a stable
+    ``argsort`` by the key, the same arrays)."""
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    w = np.ascontiguousarray(w, np.float32)
+    part_of_row = np.ascontiguousarray(part_of_row, np.int32)
+    n = src.shape[0]
+    n_keys = (int(part_of_row[-1]) + 1) * k if part_of_row.size else k
+    if n_keys >= 2**31:
+        raise ValueError(f"{n_keys} cells overflow the int32 cell count")
+    lib = _load()
+    if lib is None:
+        key = part_of_row[dst].astype(np.int64) * k + src // np.int32(sb)
+        order = np.argsort(key, kind="stable")
+        return src[order], dst[order], w[order], np.bincount(key, minlength=n_keys).astype(np.int64)
+    o_src = np.empty(n, np.int32)
+    o_dst = np.empty(n, np.int32)
+    o_w = np.empty(n, np.float32)
+    cell_counts = np.empty(n_keys, np.int64)
+    lib.sgl_classify_sort_cells_2d(src, dst, w, n, sb, k, part_of_row, n_keys, o_src, o_dst, o_w, cell_counts)
+    return o_src, o_dst, o_w, cell_counts
 
 
 def build_normalized_adj_host(src, dst, val, num_nodes: int, r: float = 0.5):

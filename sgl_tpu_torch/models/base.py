@@ -8,7 +8,8 @@
   split.
 * ``net`` is the trainable stage: ``(learnable message op ∘) base model``,
   an ``nn.Module`` whose parameters the task's optimizer owns.
-* ``batch_input(idx)`` slices the cached features for a node batch.
+* ``batch_input(idx)`` slices the cached features for a node batch; a
+  host hop store (``attach_host_hops``) serves its rows instead.
 * ``postprocess(graph, logits)`` is softmax → propagate → aggregate.
 """
 
@@ -92,7 +93,10 @@ class SGAPModel:
         """Run the training-free propagation on ``device`` (default: the
         GPU) and cache the result.  ``dtype=torch.bfloat16`` runs the whole
         precompute in bf16 (the CSR kernel's bf16 variant; half the hop
-        memory); the default keeps f32."""
+        memory); the default keeps f32.  A host hop store attached by
+        :meth:`attach_host_hops` is kept: it cannot be derived again here."""
+        if hasattr(self.processed_feature, "rows"):
+            return
         if x is None:
             x = graph.x
         x = torch.as_tensor(x)
@@ -119,6 +123,20 @@ class SGAPModel:
             hops = self.pre_graph_op.propagate(graph, x, device=device)
             self.processed_feature = eager_aggregate(self.pre_msg_op, hops)
 
+    def attach_host_hops(self, host_hops) -> None:
+        """Use a host-resident hop store (``utils.hop_store.HostHops``, e.g.
+        the memmaps an out-of-core precompute wrote) as this model's feature
+        cache: training then moves O(batch) rows a step and the stack never
+        enters the card whole.  Non-learnable message ops aggregate each
+        gathered batch on the card."""
+        if host_hops.num_hops != self.prop_steps + 1:
+            raise ValueError(
+                f"store has {host_hops.num_hops} hops, model expects {self.prop_steps + 1}"
+            )
+        if not self.pre_msg_learnable and host_hops.agg is None:
+            host_hops.agg = lambda stack: eager_aggregate(self.pre_msg_op, stack)
+        self.processed_feature = host_hops
+
     # -- stage 2: training network -----------------------------------------
     @property
     def net(self) -> SGAPNet:
@@ -134,9 +152,14 @@ class SGAPModel:
 
     def batch_input(self, idx: torch.Tensor) -> torch.Tensor:
         """Slice cached features for a node-index batch (hop-major stacks
-        along dim 1)."""
+        along dim 1); a store with ``rows`` (a host hop store) gathers them."""
         if self.processed_feature is None:
             raise RuntimeError("call preprocess() before training")
+        if hasattr(self.processed_feature, "rows"):
+            feats = self.processed_feature.rows(idx)
+            if self.pre_msg_learnable and self.node_major and feats.dim() == 3:
+                feats = feats.movedim(0, 1)
+            return feats
         idx = torch.as_tensor(idx, device=self.processed_feature.device)
         dim = 1 if self.pre_msg_learnable and not self.node_major else 0
         return self.processed_feature.index_select(dim, idx)

@@ -4,6 +4,8 @@ Counterpart of ``sgl_tpu/ops/graph_ops.py``.  A graph op normalizes the
 graph once on the target device, lays it out as a dst-CSR (cached per graph
 and device), and runs one SpMM per hop.  Propagation is training-free, so
 it runs under ``torch.no_grad()`` (the counterpart of ``stop_gradient``).
+:meth:`GraphOp.propagate_out_of_core` keeps features and hops on the host
+and streams them through the card (``kernels/spmm_ooc.py``).
 """
 
 from __future__ import annotations
@@ -15,9 +17,20 @@ import torch
 
 from sgl_tpu_torch.device import resolve_device
 from sgl_tpu_torch.graph.graph import Graph
-from sgl_tpu_torch.graph.normalize import ppr_weights, symmetric_normalized_weights
+from sgl_tpu_torch.graph.normalize import (
+    ppr_weights,
+    ppr_weights_host,
+    symmetric_normalized_weights,
+    symmetric_normalized_weights_host,
+)
 from sgl_tpu_torch.kernels.sparse import SparseAdj, spmm
 from sgl_tpu_torch.kernels.spmm_csr import CsrAdj, prepare_csr
+from sgl_tpu_torch.kernels.spmm_ooc import (
+    host_bits,
+    k_hop_out_of_core,
+    prepare_out_of_core,
+    prepare_out_of_core_2d,
+)
 
 
 @torch.no_grad()
@@ -67,6 +80,11 @@ class GraphOp:
     def construct_adj(self, graph: Graph, device: torch.device) -> SparseAdj:
         raise NotImplementedError
 
+    def construct_adj_host(self, graph: Graph) -> SparseAdj:
+        """The same normalized adjacency built on the host (CPU tensors),
+        for the out-of-core layouts."""
+        raise NotImplementedError
+
     def _adj_for(self, graph: Graph, device: torch.device) -> CsrAdj:
         """Normalized dst-CSR adjacency on ``device``, with a one-entry
         cache: repeated propagation over one graph (preprocess, then
@@ -104,6 +122,52 @@ class GraphOp:
             adj, _as_compute_dtype(x, device), np.asarray(weights, np.float32), self.prop_steps
         )
 
+    def propagate_out_of_core(
+        self,
+        graph: Graph,
+        x_host,
+        max_edges_per_part: int = 6 << 20,
+        hop_sink=None,
+        layout: str = "1d",
+        src_blocks="auto",
+        layout_cache_dir=None,
+        device=None,
+    ):
+        """``[X, AX, ...]`` for graphs whose features and hops stay on the
+        host, streamed through ``device`` (default: the GPU).
+
+        The normalized adjacency is built on the host
+        (:meth:`construct_adj_host`), laid out once and cached per graph
+        under every input that shapes the layout (layout, part edges,
+        ``src_blocks``, the features' width and dtype).  ``x_host`` is numpy
+        float32 or a CPU tensor (float32 or bfloat16).  Returns the host
+        hops, or hands each to ``hop_sink(k, arr)`` and returns None.
+
+        ``layout="2d"`` is the src-block layout (contiguous block
+        workspaces, no host gather; ``kernels/spmm_ooc.py``), and
+        ``layout_cache_dir`` keeps its build on disk, content-keyed.
+        """
+        if layout not in ("1d", "2d"):
+            raise ValueError("layout must be '1d' or '2d'")
+        self._check(graph, x_host)
+        device = resolve_device(device)
+        bits, dtype = host_bits(x_host)
+        build_key = ("ooc", layout, int(max_edges_per_part), src_blocks, int(bits.shape[1]), str(dtype))
+        ref, cached_key, cached = self._adj_cache
+        if ref is not None and ref() is graph and cached_key == build_key:
+            oc = cached
+        else:
+            adj = self.construct_adj_host(graph)
+            if layout == "2d":
+                oc = prepare_out_of_core_2d(
+                    adj, max_edges_per_part=max_edges_per_part, src_blocks=src_blocks,
+                    feat_dim=int(bits.shape[1]), feat_dtype=dtype, cache_dir=layout_cache_dir,
+                )
+            else:
+                oc = prepare_out_of_core(adj, max_edges_per_part=max_edges_per_part)
+            self._adj_cache = (weakref.ref(graph), build_key, oc)
+        return k_hop_out_of_core(oc, x_host, self.prop_steps, hop_sink=hop_sink, device=device)
+
 
 class LaplacianGraphOp(GraphOp):
     """Generalized symmetric normalization ``D^{r-1} Â D^{-r}`` (r=0.5 = GCN)."""
@@ -114,6 +178,9 @@ class LaplacianGraphOp(GraphOp):
 
     def construct_adj(self, graph: Graph, device: torch.device) -> SparseAdj:
         return symmetric_normalized_weights(graph, r=self.r, device=device)
+
+    def construct_adj_host(self, graph: Graph) -> SparseAdj:
+        return symmetric_normalized_weights_host(graph, r=self.r)
 
 
 class PprGraphOp(GraphOp):
@@ -126,3 +193,6 @@ class PprGraphOp(GraphOp):
 
     def construct_adj(self, graph: Graph, device: torch.device) -> SparseAdj:
         return ppr_weights(graph, r=self.r, alpha=self.alpha, device=device)
+
+    def construct_adj_host(self, graph: Graph) -> SparseAdj:
+        return ppr_weights_host(graph, r=self.r, alpha=self.alpha)

@@ -74,6 +74,8 @@ class NodeClassification(BaseTask):
         self.preprocess_seconds: float = 0.0
         #: wall seconds of each epoch's training steps (device work included)
         self.epoch_seconds: List[float] = []
+        #: each epoch's mean training loss (weighted by the batches' rows)
+        self.train_losses: List[float] = []
         self._test_acc = self._execute()
 
     @property
@@ -136,6 +138,7 @@ class NodeClassification(BaseTask):
                 weights.append(float(w.sum()))
             self.epoch_seconds.append(time.perf_counter() - t)
             loss_train = float(np.average(losses, weights=weights))
+            self.train_losses.append(loss_train)
             acc_train = float(np.average(accs, weights=weights))
             acc_val = eval_on(val_idx)
             acc_test = eval_on(test_idx)
@@ -167,7 +170,15 @@ class NodeClassification(BaseTask):
     def _postprocess(self, net, labels, val_idx, test_idx):
         ds, model, device = self._dataset, self._model, self._device
         all_idx = torch.arange(ds.num_node, device=device)
-        outputs = make_logits_fn(net)(model.batch_input(all_idx))
+        logits = make_logits_fn(net)
+        if hasattr(model.processed_feature, "rows"):
+            # a host hop store never enters the card whole: its rows go in
+            # pieces of the eval batch (the logits are row-wise)
+            step = self._eval_batch_size or self._train_batch_size or ds.num_node
+            outputs = torch.cat([logits(model.batch_input(all_idx[i:i + step]))
+                                 for i in range(0, ds.num_node, step)])
+        else:
+            outputs = logits(model.batch_input(all_idx))
         final = model.postprocess(ds.graph, outputs)
         pred = final.argmax(dim=1)
 

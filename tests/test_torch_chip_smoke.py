@@ -3,6 +3,8 @@
 import pytest
 import torch
 
+import sys
+
 from chip_smoke import (
     GRAPH_STEPS,
     LABEL_WIDTHS,
@@ -10,10 +12,21 @@ from chip_smoke import (
     csr_bound,
     expected_hetero_launches,
     expected_label_launches,
+    expected_ooc_launches,
     kernels_line,
     nafs_bound,
     ptxas_summary,
     segment_bound,
+)
+from sgl_tpu_torch.datasets import random_power_law_graph
+from sgl_tpu_torch.dev.ooc_probe import busy_ms
+from sgl_tpu_torch.graph import symmetric_normalized_weights_host
+from sgl_tpu_torch.kernels import (
+    prepare_out_of_core,
+    prepare_out_of_core_2d,
+    spmm_2d_resident,
+    spmm_out_of_core,
+    spmm_out_of_core_2d,
 )
 from sgl_tpu_torch.kernels.segment_reduce import INSTANTIATIONS
 
@@ -79,9 +92,23 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
     at_batch = {k: dict(probe, max_abs_err=0.0, max_rel_err=0.0) for k in ("f32", "bf16")}
     hetero = dict(launches={"f32": 9, "bf16": 3, "fixup_f32": 0, "fixup_bf16": 0},
                   times={"nars": at_batch, "graph": at_batch})
+    form = dict(probe, launches=40, fixup_launches=20, hop_s=0.5, max_abs_err=0.0, max_rel_err=0.0)
+    ooc = dict(products={"1d f32": dict(form, key="f32"), "2d f32": dict(form, key="f32"),
+                         "2d bf16": dict(form, key="bf16", launches=20)},
+               papers=dict(launches=3, fixup_launches=3, peak_bytes=1))
     line = kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo, label, hetero)
+                        dev_launches, dev_results, zoo, label, hetero, ooc)
     kernels = line["kernels"]
+    # phase 10's on K3 and K4: each out-of-core form's launches a hop, with its times
+    k3, k4 = kernels[2], kernels[3]
+    assert k3["name"] == "spmm_csr_acc_f32" and k4["name"] == "spmm_csr_acc_bf16"
+    assert k3["ooc_launches"] == {"1d f32": [40, 20], "2d f32": [40, 20], "papers100m pipeline": [3, 3]}
+    assert k4["ooc_launches"] == {"2d bf16": [20, 20]} and k4["ooc"]["2d bf16"]["hop_s"] == 0.5
+    assert k3["papers100m"]["peak_bytes"] == 1 and "papers100m" not in k4
+    # each out-of-core form's kernel-vs-twin error counts toward its row's
+    ooc["products"]["2d bf16"]["max_rel_err"] = 0.25
+    assert kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
+                        dev_launches, dev_results, zoo, label, hetero, ooc)["kernels"][3]["max_rel_err"] == 0.25
     # phase 9's on K1 and K2, with their times at the NARS and graph-level batches
     assert [(k["hetero_launches"], k["hetero_fixup_launches"]) for k in kernels[:2]] == [(9, 0), (3, 0)]
     assert all(k["nars_batch"]["ms"] == 1.0 and k["graph_batch"]["bound_by"] == "bytes" for k in kernels[:2])
@@ -143,3 +170,34 @@ def test_csr_bound_counts_one_pass_of_the_batch(elem):
     assert b["nbytes"] == 4 * (n + 1) + 8 * e + 2 * n * d * elem
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] == pytest.approx(b["nbytes"] / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("layout", ["1d", "2d", "resident"])
+def test_expected_ooc_launches_count_what_a_hop_launches(monkeypatch, layout):
+    """The launch counts phase 10 holds each out-of-core hop to, worked out
+    from the layout, equal the accumulating launches (and fix-ups, for the
+    parts or cells with a long row) that one hop makes."""
+    ooc = sys.modules["sgl_tpu_torch.kernels.spmm_ooc"]
+    calls = []
+    real = ooc.spmm_csr_acc
+    monkeypatch.setattr(ooc, "spmm_csr_acc", lambda part, x, acc: calls.append(part.plan.num_long > 0)
+                        or real(part, x, acc))
+    adj = symmetric_normalized_weights_host(random_power_law_graph(3_000, 8, 8, seed=0))
+    x = torch.as_tensor(random_power_law_graph(3_000, 8, 8, seed=0).x)
+    if layout == "1d":
+        oc = prepare_out_of_core(adj, max_edges_per_part=2048)
+        spmm_out_of_core(oc, x, device="cpu")
+    else:
+        oc = prepare_out_of_core_2d(adj, max_edges_per_part=2048, src_blocks=3, feat_dim=8)
+        if layout == "2d":
+            spmm_out_of_core_2d(oc, x, device="cpu", max_device_acc_bytes=1)  # a part a group
+        else:
+            spmm_2d_resident(oc, x)
+    launches, fixups = expected_ooc_launches(oc)
+    assert launches == len(calls) > 1 and fixups == sum(calls) > 0
+
+
+def test_busy_ms_is_the_union_of_intervals():
+    assert busy_ms([]) == 0.0
+    assert busy_ms([(0, 1000), (500, 1500), (3000, 4000)]) == pytest.approx(2.5)
+    assert busy_ms([(0, 4000), (1000, 2000)]) == pytest.approx(4.0)

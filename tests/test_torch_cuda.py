@@ -677,3 +677,80 @@ def test_graph_classification_on_the_card_matches_the_cpu(cuda, dtype):
     task = GraphClassification(ds, make(), lr=0.05, weight_decay=5e-5, epochs=5, verbose=False,
                                precompute_dtype=dtype if key == "bf16" else None)
     assert 0.0 <= task.test_acc <= 1.0
+
+
+# -- out of core: K3/K4 on host-streamed parts, card against the CPU path ------
+
+
+def _ooc_graph():
+    from sgl_tpu_torch.graph import symmetric_normalized_weights_host
+
+    g = random_power_law_graph(6000, 10, 40, seed=5)
+    return symmetric_normalized_weights_host(g), g.x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["1d", "2d", "resident"])
+def test_out_of_core_on_the_card_matches_the_cpu(cuda, layout, dtype):
+    """Each layout's hop on the card (pinned slots, copy streams, K3/K4)
+    against its CPU path; two runs bit-equal; one launch a part or
+    non-empty cell, and a fix-up for each that holds a long row."""
+    from sgl_tpu_torch.kernels import (
+        prepare_out_of_core, prepare_out_of_core_2d, spmm_2d_resident, spmm_out_of_core,
+        spmm_out_of_core_2d,
+    )
+
+    adj, x = _ooc_graph()
+    xt = torch.as_tensor(x).to(dtype)
+    key = "acc_" + {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    if layout == "1d":
+        oc = prepare_out_of_core(adj, max_edges_per_part=8192)
+        cells = [p.csr for p in oc.parts]
+        run = lambda dev: spmm_out_of_core(oc, xt, device=dev)  # noqa: E731
+    else:
+        oc = prepare_out_of_core_2d(adj, max_edges_per_part=8192, src_blocks=3, feat_dim=40, feat_dtype=dtype)
+        cells = [c for row in oc.parts for c in row if c.nnz]
+        if layout == "2d":
+            run = lambda dev: spmm_out_of_core_2d(oc, xt, device=dev, max_device_acc_bytes=1 << 20)  # noqa: E731
+        else:
+            run = lambda dev: spmm_2d_resident(oc, xt.to(dev)).cpu()  # noqa: E731
+    want = run("cpu")
+    before, fixups = spmm_csr.launches[key], spmm_csr.fixup_launches[key]
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert spmm_csr.launches[key] - before == len(cells) > 1
+    assert spmm_csr.fixup_launches[key] - fixups == sum(c.counts[3] > 0 for c in cells)
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    assert got.dtype == dtype and not got.is_cuda
+    assert _rel_to_max(got.float(), want.float()) <= TOL[dtype]
+    assert torch.equal(torch.as_tensor(run(cuda)), got)
+
+
+def test_out_of_core_null_transfer_and_edge_cache_on_the_card(cuda):
+    from sgl_tpu_torch.kernels import prepare_out_of_core_2d, spmm_out_of_core_2d
+
+    adj, x = _ooc_graph()
+    oc = prepare_out_of_core_2d(adj, max_edges_per_part=8192, src_blocks=3, feat_dim=40)
+    want = spmm_out_of_core_2d(oc, x, device="cpu")
+    spmm_out_of_core_2d(oc, x, device=cuda, null_transfer=True)
+    cached = dict(oc._dev_edges)
+    assert len(cached) == oc.num_cells and all(p.rowptr.is_cuda for p in cached.values())
+    spmm_out_of_core_2d(oc, x, null_transfer=True)  # device=None: the same card, served from the cache
+    assert all(oc._dev_edges[k] is p for k, p in cached.items())
+    got = spmm_out_of_core_2d(oc, x, device=cuda, max_device_edge_bytes=0)
+    assert len(oc._dev_edges) == 0
+    assert _rel_to_max(torch.as_tensor(got), torch.as_tensor(want)) <= TOL[torch.float32]
+
+
+def test_host_hops_rows_on_the_card(cuda):
+    from sgl_tpu_torch.utils import HostHops
+
+    rng = np.random.default_rng(0)
+    hops = [rng.normal(size=(500, 24)).astype(np.float32) for _ in range(3)]
+    store = HostHops(hops, device=cuda)
+    batches = [rng.integers(0, 500, 100) for _ in range(5)]
+    # five batches through two pinned slots, read only after all are issued
+    got = [store.rows(torch.as_tensor(b, device=cuda)) for b in batches]
+    for b, g in zip(batches, got):
+        assert g.is_cuda
+        assert torch.equal(g.cpu(), torch.from_numpy(np.stack(hops)[:, b]))

@@ -1,7 +1,7 @@
 """The port stands alone: ``sgl_tpu_torch`` and ``chip_smoke.py`` import
 nothing of JAX, Flax, Optax, ``sgl_tpu``, the JAX harnesses in ``dev/``,
-scikit-learn or matplotlib (the card's machine has neither), and importing
-the package needs no CUDA."""
+scikit-learn, matplotlib or ml_dtypes (the card's machine has none of the
+three), and importing the package needs no CUDA."""
 
 import pathlib
 import re
@@ -16,7 +16,7 @@ MODULES = [
     "sgl_tpu_torch", "sgl_tpu_torch.convert", "sgl_tpu_torch.kernels._build",
     "sgl_tpu_torch.examples.products_scale_demo", "sgl_tpu_torch.dev.exp_spmm",
     "sgl_tpu_torch.dev.exp_gather_dma", "sgl_tpu_torch.dev.exp_acc_alias",
-    "sgl_tpu_torch.dev.tune_spmm_csr", "sgl_tpu_torch.dev.tune_segment_reduce",
+    "sgl_tpu_torch.dev.tune_spmm_csr", "sgl_tpu_torch.dev.tune_segment_reduce", "sgl_tpu_torch.dev.ooc_probe",
     "sgl_tpu_torch.graph.native", "sgl_tpu_torch.graph.transforms", "sgl_tpu_torch.datasets.planetoid",
     "sgl_tpu_torch.datasets.utils", "sgl_tpu_torch.models.homo", "sgl_tpu_torch.ops.message_ops",
     "sgl_tpu_torch.kernels.sparse", "sgl_tpu_torch.tasks.utils", "sgl_tpu_torch.tricks.utils",
@@ -26,16 +26,18 @@ MODULES = [
     "sgl_tpu_torch.tasks.link_prediction", "sgl_tpu_torch.graph.batch", "sgl_tpu_torch.datasets.choose_edge_type",
     "sgl_tpu_torch.datasets.hetero_datasets", "sgl_tpu_torch.datasets.tu_dataset", "sgl_tpu_torch.models.hetero",
     "sgl_tpu_torch.models.graph_level", "sgl_tpu_torch.tasks.hetero_node_classification",
-    "sgl_tpu_torch.tasks.graph_classification", "sgl_tpu_torch.etc.auto_select_edge_type_for_nars", "chip_smoke",
+    "sgl_tpu_torch.tasks.graph_classification", "sgl_tpu_torch.etc.auto_select_edge_type_for_nars",
+    "sgl_tpu_torch.kernels.spmm_ooc", "sgl_tpu_torch.utils.hop_store", "sgl_tpu_torch.examples.papers100m_pipeline",
+    "chip_smoke",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
 ]
 # the top-level packages the port never imports
-NEVER = ("jax", "flax", "optax", "sgl_tpu", "sklearn", "matplotlib")
+NEVER = ("jax", "flax", "optax", "sgl_tpu", "sklearn", "matplotlib", "ml_dtypes")
 # word-bounded: ``sgl_tpu_torch`` is not ``sgl_tpu``; ``dev`` and ``exp_*``
 # are the JAX harnesses, which the port's ``sgl_tpu_torch.dev`` replaces
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|optax|sgl_tpu|sklearn|matplotlib|dev|exp_\w+)\b", re.M
+    r"^\s*(?:import|from)\s+(?:jax|flax|optax|sgl_tpu|sklearn|matplotlib|ml_dtypes|dev|exp_\w+)\b", re.M
 )
 SOURCES = sorted((ROOT / "sgl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -75,3 +77,4 @@ def test_forbidden_pattern_is_word_bounded():
     assert FORBIDDEN.search("from sklearn.cluster import KMeans")
     assert FORBIDDEN.search("    import matplotlib.pyplot as plt")
     assert not FORBIDDEN.search("import sklearn_like")
+    assert FORBIDDEN.search("import ml_dtypes")

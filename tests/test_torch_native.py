@@ -169,3 +169,36 @@ def test_host_normalization_matches_device_and_sgl_tpu(kind, weighted):
 
 def test_host_norm_threshold_matches():
     assert HOST_NORM_EDGE_THRESHOLD == jnorm.HOST_NORM_EDGE_THRESHOLD == 8 << 20
+
+
+@pytest.mark.parametrize("dst_sorted", [True, False], ids=["dst_sorted", "unsorted"])
+@pytest.mark.parametrize("use_fallback", [False, True], ids=["native", "fallback"])
+def test_classify_sort_cells_2d_matches_fallback_and_sgl_tpu(request, use_fallback, dst_sorted):
+    """The 2-D out-of-core cell sort: a stable counting sort by cell key
+    (dst part x src block) that keeps the input order inside a cell; the
+    native library, its numpy fallback and ``sgl_tpu``'s native function
+    give equal arrays on the same inputs."""
+    src, dst, w = _edges(n_nodes=1000, n_edges=20_000, seed=9)
+    if dst_sorted:
+        order = np.argsort(dst, kind="stable")
+        src, dst, w = src[order], dst[order], w[order]
+    sb, k = 300, 4  # 1000 rows in 3 parts, 4 blocks (the last one short)
+    part_of_row = np.repeat(np.arange(3, dtype=np.int32), [384, 256, 360])
+    native_out = native.classify_sort_cells_2d(src, dst, w, sb, k, part_of_row)
+    # sgl_tpu's takes a per-tile part table and returns each edge's tile
+    # too: with one-row tiles the table is the per-row one and the tile is dst
+    j_src, j_dst, j_tile, j_w, j_counts = jnative.classify_sort_cells_2d(src, dst, w, 1, sb, k, part_of_row)
+    np.testing.assert_array_equal(j_tile, j_dst)
+    want = (j_src, j_dst, j_w, j_counts)
+    if use_fallback:
+        request.getfixturevalue("fallback")
+    got = native.classify_sort_cells_2d(src, dst, w, sb, k, part_of_row)
+    assert got[3].shape == (3 * k,) and int(got[3].sum()) == src.shape[0]
+    for a, b, c in zip(got, want, native_out):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    key = part_of_row[got[1]] * k + got[0] // sb
+    assert np.all(np.diff(key) >= 0)
+    if dst_sorted:  # dst order inside every cell
+        same = key[1:] == key[:-1]
+        assert np.all(got[1][1:][same] >= got[1][:-1][same])
