@@ -120,14 +120,31 @@ Phases; any failure raises and the script exits non-zero:
    launches held, the stored hops against ``GraphOp.propagate`` (K1) and a
    float64 product, training from the store, peak device memory below the
    hop stack's size;
-11. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
+11. NAS (``sgl_tpu_torch.search``) on the card: first one arch of each
+   message type on a small graph (``PlantedPartition``) through a
+   propagation cache, features, logits and post-processed output against
+   the port's CPU path; then OGB raw files at ogbn-arxiv's shape
+   (169,343 nodes, 1,166,243 edges, 128 features, 40 classes, the time
+   split) written from a seed into a temporary directory, the native csv
+   parser against ``numpy.loadtxt`` on the edge and label files (the run
+   fails without the parser), and ``Ogbn("arxiv", root)``; then
+   ``examples/test_nas.py``'s search, ``run_nas`` (12 trials, the
+   evolutionary search where OpenBox is absent) and ``run_sha`` (9
+   archs, eta 3), the launch counters set to 0 just before each run and
+   read just after, held to ``expected_nas_launches``; one trial of the
+   best arch traced on the warm cache (the card's busy and idle share, its
+   device time by kernel); the cache's stacks
+   against ``GraphOp.propagate``; ``HopCheckpointer.propagate_resumable``
+   stopped and resumed, bit-equal to an uninterrupted run;
+12. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
    (for K1–K4 and D2–D6 also the fix-up's; for K1/K2 also phase 7's, as
    ``zoo_launches``, and phase 9's, as ``hetero_launches``, with their
    times at the two phase-9 batches; for K1 also phase 8's, as
    ``label_launches``, with its label widths, its gradient and the NAFS
-   product; for K3/K4 phase 10's, as ``ooc_launches``, with each form's
-   hop times), errors and times beside its bound;
-12. print ``{"ok": true, "device": {...}}`` as the last line.
+   product, and phase 11's, as ``nas_launches``; for K3/K4 phase 10's, as
+   ``ooc_launches``, with each form's hop times), errors and times beside
+   its bound;
+13. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
 to it, and exits non-zero without printing a result when either is missing.
@@ -1135,11 +1152,10 @@ def nafs_bound(n: int, e: int, r: int, d: int) -> dict:
     return dict(b, nbytes=nbytes)
 
 
-def run_counted(name: str, fn, launches: dict, fixups: dict, phase: str) -> tuple:
+def count_launches(fn) -> tuple:
     """``fn()`` with the CSR kernel's counters set to 0 just before and read
-    just after, held to ``launches`` and ``fixups`` by instantiation (0 for
-    every one not named).  Returns ``(result, seconds, launches, fix-ups,
-    peak device bytes)``."""
+    just after.  Returns ``(result, seconds, launches, fix-ups, peak device
+    bytes)``, the counts by instantiation."""
     from sgl_tpu_torch.kernels import spmm_csr
 
     torch.cuda.empty_cache()
@@ -1150,10 +1166,23 @@ def run_counted(name: str, fn, launches: dict, fixups: dict, phase: str) -> tupl
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     counts, fixup_counts = dict(spmm_csr.launches), dict(spmm_csr.fixup_launches)
+    return out, seconds, counts, fixup_counts, torch.cuda.max_memory_allocated()
+
+
+def hold_launches(name: str, phase: str, counts: dict, fixup_counts: dict, launches: dict, fixups: dict) -> None:
+    """Raise unless the counts equal ``launches`` and ``fixups`` by
+    instantiation (0 for every one not named)."""
     for what, got, want in (("launches", counts, launches), ("fix-up launches", fixup_counts, fixups)):
         expect = {k: want.get(k, 0) for k in got}
         check(got == expect, f"[{phase}] {name}: {what} {got}, expected {expect}")
-    return out, seconds, counts, fixup_counts, torch.cuda.max_memory_allocated()
+
+
+def run_counted(name: str, fn, launches: dict, fixups: dict, phase: str) -> tuple:
+    """:func:`count_launches` of ``fn``, held to ``launches`` and ``fixups``
+    (:func:`hold_launches`)."""
+    out, seconds, counts, fixup_counts, peak = count_launches(fn)
+    hold_launches(name, phase, counts, fixup_counts, launches, fixups)
+    return out, seconds, counts, fixup_counts, peak
 
 
 def label_small_graph(dev) -> None:
@@ -2070,6 +2099,323 @@ def ooc_phase(dev, graph, refs) -> dict:
     return {"products": products, "papers": papers_phase(dev)}
 
 
+# -- phase 11: NAS on the card ------------------------------------------------------
+
+# ogbn-arxiv's published shape: nodes, directed edges, width, classes, and
+# the time split's train / valid / test sizes; the graph, features and
+# labels from SyntheticPowerLaw (14 edges a node: ~1.18M draws)
+NAS_OGB = dict(num_nodes=169_343, num_edges=1_166_243, feat_dim=128, num_classes=40,
+               split=(90_941, 29_799, 48_603), avg_degree=14, seed=0)
+# examples/test_nas.py's search
+NAS_ARCH = (2, 1, 1, 2, 3, 1, 0)
+NAS_TRAIN = dict(lr=1e-2, weight_decay=5e-4, epochs=50, hidden_dim=128)
+NAS_RESTARTS = 2
+NAS_RUN = dict(max_runs=12, optimizer="auto", seed=1)
+NAS_SHA = dict(n_configs=9, eta=3, min_epochs=5, seed=1)
+# tests/test_search.py's small graph, and one arch for each message type 0-8
+# (post types 0-5 among them; every graph-op type)
+NAS_SMALL = dict(num_nodes=200, feat_dim=12, p_in=0.08, seed=4)
+NAS_SMALL_ARCHS = tuple((1 + m % 3, 1 + m % 4, m, 1 + m % 3, 1 + (m + 1) % 3, 1 + (m + 2) % 4, m % 6)
+                        for m in range(9))
+# the resumable precompute: stopped after this hop, then resumed to the last
+NAS_RESUME = (2, 5)
+
+
+def write_ogb_raw(root: str, shape: dict = None) -> dict:
+    """OGB raw files of ``shape`` in the standard layout under
+    ``root/ogbn/arxiv/ogbn_arxiv`` (what ``Ogbn("arxiv", root)`` reads), gzip
+    level 1, from ``SyntheticPowerLaw``: ``num_edges`` of its edges, each
+    drawn pair once in a seeded order, its features and labels, and a
+    seeded split.  Returns the arrays written and the paths."""
+    import gzip
+
+    from sgl_tpu_torch.datasets import SyntheticPowerLaw
+
+    shape = shape or NAS_OGB
+    n, e = shape["num_nodes"], shape["num_edges"]
+    ds = SyntheticPowerLaw(num_nodes=n, avg_degree=shape["avg_degree"], feat_dim=shape["feat_dim"],
+                           num_classes=shape["num_classes"], seed=shape["seed"])
+    src, dst, _ = ds.graph.edges()
+    once = src < dst  # the graph holds each drawn pair both ways
+    check(int(once.sum()) >= e, f"the synthetic graph has {int(once.sum())} pairs, fewer than {e}")
+    rng = np.random.default_rng(shape["seed"])
+    pick = rng.permutation(int(once.sum()))[:e]
+    edges = np.stack([src[once][pick], dst[once][pick]], axis=1).astype(np.int64)
+    perm = rng.permutation(n)
+    n_train, n_valid, _ = shape["split"]
+    split = {"train": perm[:n_train], "valid": perm[n_train:n_train + n_valid], "test": perm[n_train + n_valid:]}
+    d = os.path.join(root, "ogbn", "arxiv", "ogbn_arxiv")
+    os.makedirs(os.path.join(d, "raw"), exist_ok=True)
+    os.makedirs(os.path.join(d, "split", "time"), exist_ok=True)
+
+    def write(rel, arr, fmt):
+        path = os.path.join(d, rel)
+        with gzip.open(path, "wt", compresslevel=1) as f:
+            np.savetxt(f, arr, fmt=fmt, delimiter=",")
+        return path
+
+    paths = {
+        "edge": write("raw/edge.csv.gz", edges, "%d"),
+        "node-feat": write("raw/node-feat.csv.gz", ds.x, "%.6g"),
+        "node-label": write("raw/node-label.csv.gz", np.asarray(ds.y)[:, None], "%d"),
+    }
+    for part, idx in split.items():
+        paths[part] = write(f"split/time/{part}.csv.gz", idx[:, None], "%d")
+    return dict(paths=paths, edges=edges, x=ds.x, y=np.asarray(ds.y), split=split)
+
+
+def expected_nas_launches(history, cache, split_rows: bool) -> tuple:
+    """K1's (f32) launches of a NAS run and its fix-ups: the cache's
+    ``hops_computed`` (the pre-propagation's products: misses and
+    extensions) plus each trial's ``post_steps`` (every trial with a post
+    graph op post-propagates once), and as many fix-ups when the graph's
+    plan has split rows (every op of the space shares the graph's rows),
+    else none.  ``PERF.md`` §6 states them."""
+    post = sum(t.config["post_steps"] for t in history.trials
+               if t.config["post_types"] != 0 and t.config["post_steps"] != 0)
+    launches = cache.hops_computed + post
+    return launches, launches if split_rows else 0
+
+
+def nas_small_graph(dev) -> None:
+    """One arch of each message type on the small graph: the card's
+    preprocessed features (through a propagation cache), logits and
+    post-processed output against the port's CPU path, the same weights
+    (the CPU model's ``state_dict``)."""
+    from sgl_tpu_torch.datasets import PlantedPartition
+    from sgl_tpu_torch.search import PropagationCache, SearchModel
+
+    cpu = torch.device("cpu")
+    ds = PlantedPartition(**NAS_SMALL)
+    caches = {cpu: PropagationCache(), dev: PropagationCache()}
+    worst = 0.0
+    for arch in NAS_SMALL_ARCHS:
+        out = {}
+        models = {where: SearchModel(arch, ds.num_features, ds.num_classes, hidden_dim=16) for where in (cpu, dev)}
+        models[cpu].init(torch.Generator().manual_seed(sum(arch)))
+        models[dev].net.load_state_dict(models[cpu].net.state_dict())
+        models[dev].net.to(dev)
+        for where, m in models.items():
+            m.preprocess(ds.graph, ds.x, device=where, prop_cache=caches[where])
+            with torch.no_grad():
+                logits = m.net(m.batch_input(torch.arange(ds.num_node, device=where)))
+                out[where] = (m.processed_feature, logits, m.postprocess(ds.graph, logits))
+        check(all(t.is_cuda for t in out[dev]), f"[11] arch {arch}: not on the card")
+        for name, got, want in zip(("features", "logits", "post-processed"), out[dev], out[cpu]):
+            err = rel_err(got.cpu(), want)[1]
+            worst = max(worst, err)
+            check(err <= TOL["f32"], f"[11] arch {arch}: {name} card vs CPU {err:.3e}")
+    log(f"[11] small graph ({NAS_SMALL}): {len(NAS_SMALL_ARCHS)} archs {list(NAS_SMALL_ARCHS)} (message types "
+        f"0-8, post types 0-5): features, logits and post-processed output, card vs CPU, max rel err "
+        f"{worst:.3e} (limit {TOL['f32']:.0e})")
+
+
+def nas_cache_check(dev, ds) -> dict:
+    """The cache's stacks (a first request, a prefix, an extension) against
+    ``GraphOp.propagate`` at the same depth on the card, one Laplacian and
+    one PPR config; whether the extension is bit-equal to the direct run."""
+    from sgl_tpu_torch.ops import LaplacianGraphOp, PprGraphOp
+    from sgl_tpu_torch.search import PropagationCache
+
+    out = {}
+    for name, make in (("laplacian", lambda k: LaplacianGraphOp(k, r=0.5)),
+                       ("ppr 0.2", lambda k: PprGraphOp(k, r=0.5, alpha=0.2))):
+        cache = PropagationCache()
+        direct = make(5).propagate(ds.graph, ds.x, device=dev)
+        first, _ = cache.hops_for(ds.graph, ds.x, make(3), device=dev)
+        prefix, _ = cache.hops_for(ds.graph, ds.x, make(2), device=dev)
+        extended, _ = cache.hops_for(ds.graph, ds.x, make(5), device=dev)
+        errs = [rel_err(got, direct[: got.shape[0]])[1] for got in (first, prefix, extended)]
+        check(max(errs) <= TOL["f32"], f"[11] cache {name}: vs direct propagation {errs}")
+        check((cache.misses, cache.hits, cache.hops_computed) == (1, 2, 5), f"[11] cache {name}: stats")
+        out[name] = dict(max_rel_err=max(errs), bit_equal=bool(torch.equal(extended, direct)))
+        del cache, direct, first, prefix, extended
+    log(f"[11] cache vs GraphOp.propagate (hops 3, a prefix of 2, extended to 5; limit {TOL['f32']:.0e}): "
+        + ", ".join(f"{k} max rel err {v['max_rel_err']:.3e}, extension bit-equal {v['bit_equal']}"
+                    for k, v in out.items()))
+    return out
+
+
+def nas_resume_check(dev, ds, tmp: str) -> dict:
+    """``HopCheckpointer.propagate_resumable`` stopped after hop
+    ``NAS_RESUME[0]`` and resumed to ``NAS_RESUME[1]``: bit-equal to an
+    uninterrupted run on the card, within ``TOL`` of the CPU path."""
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.kernels import prepare_csr
+    from sgl_tpu_torch.utils import HopCheckpointer
+
+    stop, k = NAS_RESUME
+    adj = prepare_csr(symmetric_normalized_weights(ds.graph, device=dev))
+    t = time.perf_counter()
+    HopCheckpointer(f"{tmp}/resumed").propagate_resumable(adj, ds.x, stop, device=dev)
+    resumed = HopCheckpointer(f"{tmp}/resumed").propagate_resumable(adj, ds.x, k, device=dev)
+    resume_s = time.perf_counter() - t
+    whole = HopCheckpointer(f"{tmp}/whole").propagate_resumable(adj, ds.x, k, device=dev)
+    adj_cpu = prepare_csr(symmetric_normalized_weights(ds.graph, device="cpu"))
+    on_cpu = HopCheckpointer(f"{tmp}/cpu").propagate_resumable(adj_cpu, ds.x, k, device="cpu")
+    check(resumed.is_cuda and tuple(resumed.shape) == (k + 1, ds.num_node, ds.num_features), "[11] resumed stack")
+    check(torch.equal(resumed, whole), "[11] the resumed precompute differs from an uninterrupted one")
+    err = rel_err(resumed.cpu(), on_cpu)[1]
+    check(err <= TOL["f32"], f"[11] resumed precompute vs the CPU path {err:.3e}")
+    log(f"[11] resumable precompute: {stop} hops, resumed to {k} ({resume_s:.4f} s with the hop files), "
+        f"bit-equal to an uninterrupted run; vs the CPU path max rel err {err:.3e} (limit {TOL['f32']:.0e})")
+    return dict(max_rel_err=err, bit_equal=True, seconds=resume_s)
+
+
+def nas_trial_split(configer, config: dict) -> dict:
+    """Where one NAS trial's time goes: its wall milliseconds (host clock
+    around a run that ends in a synchronize), the card's busy time from a
+    trace of another run (``ooc_probe.device_events``: after a warm-up run;
+    the union of its kernels, copies and memsets), the idle share, and the
+    device time by kernel name, the largest first.  The trace is held to
+    the trial's K1 launches: its post steps, each with its fix-up when the
+    plan has split rows, and no pre-hop (a prefix of the warm cache)."""
+    from sgl_tpu_torch.dev.ooc_probe import busy_ms, device_events
+
+    def run():
+        return configer._configFunction(dict(config))
+
+    run()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    events = device_events(run)
+    busy = busy_ms([(e[2], e[2] + e[3]) for e in events])
+    by_name = {}
+    for e in events:
+        by_name[e[1]] = by_name.get(e[1], 0.0) + e[3] / 1e3
+    k1 = sum(1 for e in events if "spmm_csr_kernel" in e[1])
+    k1_fixups = sum(1 for e in events if "spmm_csr_fixup_kernel" in e[1])
+    k1_ms = sum(v for k, v in by_name.items() if "spmm_csr" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1.0 - busy / wall_ms, events=len(events),
+                k1_launches=k1, k1_fixups=k1_fixups, k1_ms=k1_ms, top=top)
+
+
+def nas_phase(dev) -> dict:
+    """NAS through the user's entry points on the card (section 11 of the
+    module docstring).  Returns K1's launches of the counted runs, each
+    run's numbers and the checks' errors."""
+    import importlib.util
+
+    from sgl_tpu_torch.datasets import Ogbn
+    from sgl_tpu_torch.datasets import utils as csv_utils
+    from sgl_tpu_torch.datasets.utils import read_csv_numpy
+    from sgl_tpu_torch.graph import native
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.kernels import prepare_csr
+    from sgl_tpu_torch.kernels.spmm_csr import _plan
+    from sgl_tpu_torch.search import ConfigManager, run_nas, run_sha
+    from sgl_tpu_torch.utils import TrainConfig
+
+    nas_small_graph(dev)
+    check(native.csv_native_available(), "[11] the native csv parser did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        raw = write_ogb_raw(tmp)
+        write_s = time.perf_counter() - t
+        sizes = {k: os.path.getsize(p) for k, p in raw["paths"].items()}
+        parse = {}
+        written = {"edge": raw["edges"], "node-label": raw["y"][:, None]}
+        for stem, want_arr in written.items():
+            t = time.perf_counter()
+            got = native.load_csv_native(raw["paths"][stem], np.int64)
+            native_s = time.perf_counter() - t
+            t = time.perf_counter()
+            want = read_csv_numpy(raw["paths"][stem], np.int64)
+            numpy_s = time.perf_counter() - t
+            check(got is not None and np.array_equal(got, want), f"[11] {stem}: native parse != numpy.loadtxt")
+            check(np.array_equal(got, want_arr), f"[11] {stem}: parsed != written")
+            parse[stem] = dict(native_s=native_s, numpy_s=numpy_s)
+        del got, want
+        # every file of the load through the native parser: the numpy
+        # fallback is counted, and must not run
+        fallbacks = []
+        real_numpy = csv_utils.read_csv_numpy
+        csv_utils.read_csv_numpy = lambda path, dtype=np.float32: fallbacks.append(path) or real_numpy(path, dtype)
+        try:
+            t = time.perf_counter()
+            ds = Ogbn("arxiv", tmp)
+            load_s = time.perf_counter() - t
+        finally:
+            csv_utils.read_csv_numpy = real_numpy
+        check(not fallbacks, f"[11] Ogbn fell back to numpy.loadtxt for {fallbacks}")
+        n, d, c = NAS_OGB["num_nodes"], NAS_OGB["feat_dim"], NAS_OGB["num_classes"]
+        check((ds.num_node, ds.num_features, ds.num_classes) == (n, d, c), f"[11] Ogbn: {ds.num_node} nodes")
+        check([len(ds.train_idx), len(ds.val_idx), len(ds.test_idx)] == list(NAS_OGB["split"]), "[11] Ogbn split")
+        check(np.array_equal(ds.y, raw["y"]) and np.array_equal(ds.test_idx, raw["split"]["test"]),
+              "[11] Ogbn labels or split differ from the files")
+        feat_err = float(np.abs(ds.x - raw["x"]).max() / np.abs(raw["x"]).max())
+        check(feat_err <= 1e-5, f"[11] Ogbn features vs the values written (6 digits): {feat_err:.3e}")
+        log(f"[11] OGB raw files at ogbn-arxiv's shape written in {write_s:.2f} s (gzip level 1; "
+            + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in sizes.items())
+            + f"); native csv parser built {'with' if native.csv_native_zlib() else 'without'} zlib "
+            f"(every file of the load parsed natively); "
+            + "; ".join(f"{k}.csv.gz native {v['native_s']:.4f} s vs numpy.loadtxt {v['numpy_s']:.4f} s, equal"
+                        for k, v in parse.items())
+            + f"; Ogbn('arxiv') {load_s:.2f} s: {ds.num_node} nodes, {ds.graph.num_edges} undirected edges, "
+            f"{d} features ({feat_err:.2e} off the values written), {c} classes, split "
+            f"{len(ds.train_idx)}/{len(ds.val_idx)}/{len(ds.test_idx)}")
+
+        split_rows = bool(_plan(prepare_csr(symmetric_normalized_weights(ds.graph, device=dev))).num_long)
+        log(f"[11] openbox importable: {importlib.util.find_spec('openbox') is not None} "
+            f"(optimizer='auto' takes OpenBox when it is, else the evolutionary search); the graph's plan "
+            f"{'has' if split_rows else 'has no'} split rows")
+        runs = {}
+        for name, drive in (
+            ("run_nas", lambda cfgr: run_nas(cfgr, verbose=False, **NAS_RUN)),
+            ("run_sha", lambda cfgr: run_sha(cfgr, verbose=False, **NAS_SHA)),
+        ):
+            configer = ConfigManager(list(NAS_ARCH))
+            configer._setParameters(ds, restarts=NAS_RESTARTS, config=TrainConfig(**NAS_TRAIN))
+            history, seconds, counts, fixups, peak = count_launches(lambda: drive(configer))
+            cache = configer._prop_cache
+            launches, fixup_want = expected_nas_launches(history, cache, split_rows)
+            hold_launches(name, "11", counts, fixups, {"f32": launches}, {"f32": fixup_want})
+            accs = [-float(tr.objs[0]) for tr in history.trials]
+            check(all(0.0 <= a <= 1.0 for a in accs) and all(np.isfinite(tr.objs[1]) and tr.objs[1] > 0
+                                                            for tr in history.trials),
+                  f"[11] {name}: objectives {[tr.objs.tolist() for tr in history.trials]}")
+            front = history.pareto_front()
+            runs[name] = dict(trials=len(history.trials), launches=counts["f32"], fixup_launches=fixups["f32"],
+                              seconds=seconds, trial_s=[tr.elapsed for tr in history.trials], peak_bytes=peak,
+                              hits=cache.hits, misses=cache.misses, hops_computed=cache.hops_computed,
+                              best_acc=max(accs), pareto=len(front))
+            for i, tr in enumerate(history.trials):
+                log(f"[11] {name} trial {i + 1}: {tuple(tr.config[k] for k in configer.ranges)} acc "
+                    f"{-tr.objs[0]:.4f} objective time {tr.objs[1]:.4f} s, trial {tr.elapsed:.4f} s")
+            log(f"[11] {name} ({NAS_RUN if name == 'run_nas' else NAS_SHA}, restarts {NAS_RESTARTS}, {NAS_TRAIN}): "
+                f"{len(history.trials)} trials in {seconds:.2f} s (trial s median "
+                f"{statistics.median(runs[name]['trial_s']):.4f}, max {max(runs[name]['trial_s']):.4f}); cache "
+                f"{cache.hits} hits, {cache.misses} misses, {cache.hops_computed} hops computed; K1 launches "
+                f"{counts} + fix-ups {fixups} (expected {launches} + {fixup_want}: hops computed + post steps); "
+                f"Pareto front {[(tuple(tr.config.values()), round(-float(tr.objs[0]), 4), round(float(tr.objs[1]), 4)) for tr in front]}; "
+                f"peak device memory {peak / 2**30:.3f} GiB")
+            if name == "run_nas":
+                best = history.best_accuracy_trial.config
+                split = nas_trial_split(configer, best)
+                post = best["post_steps"] if best["post_types"] and best["post_steps"] else 0
+                check(split["k1_launches"] == post and split["k1_fixups"] == (post if split_rows else 0),
+                      f"[11] traced trial: K1 {split['k1_launches']} + {split['k1_fixups']} in the trace, "
+                      f"expected {post}")
+                log(f"[11] one trial of {tuple(best.values())} on the warm cache: {split['wall_ms']:.2f} ms wall, "
+                    f"the card busy {split['busy_ms']:.2f} ms (idle share {split['idle_share']:.4f}; "
+                    f"{split['events']} device events, K1 {split['k1_launches']} + {split['k1_fixups']} fix-ups "
+                    f"= {split['k1_ms']:.3f} ms); device ms by kernel: "
+                    + "; ".join(f"{k[:60]} {v:.3f}" for k, v in split["top"]))
+                runs[name]["trial_split"] = split
+            del configer, history, cache
+        cache_check = nas_cache_check(dev, ds)
+        resume = nas_resume_check(dev, ds, tmp)
+        del ds
+    torch.cuda.empty_cache()
+    return dict(launches=sum(r["launches"] for r in runs.values()),
+                fixup_launches=sum(r["fixup_launches"] for r in runs.values()),
+                runs=runs, parse=parse, write_s=write_s, load_s=load_s, cache=cache_check, resume=resume)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs one GPU", file=sys.stderr)
@@ -2128,8 +2474,9 @@ def main() -> int:
     label = phase("8", label_phase, dev)
     hetero = phase("9", hetero_phase, dev)
     ooc = phase("10", ooc_phase, dev, products_graph, products_refs)
+    nas = phase("11", nas_phase, dev)
     print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products,
-                                  dev_launches, dev_results, zoo_launches, label, hetero, ooc)))
+                                  dev_launches, dev_results, zoo_launches, label, hetero, ooc, nas)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
@@ -2137,7 +2484,7 @@ def main() -> int:
 
 
 def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
-                 zoo_launches, label, hetero, ooc) -> dict:
+                 zoo_launches, label, hetero, ooc, nas) -> dict:
     kernels = []
     for key in ("f32", "bf16"):
         r = bench[key]
@@ -2159,6 +2506,8 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
     k1.update(label_launches=label["launches"], label_fixup_launches=label["fixup_launches"],
               label_widths={str(d): r for d, r in label["widths"].items()},
               gradient=label["gradient"], nafs_product=label["multi"])
+    # phase 11, NAS (the search and successive halving), apart from the main path
+    k1.update(nas_launches=nas["launches"], nas_fixup_launches=nas["fixup_launches"])
     # phase 9, the NARS path and graph classification, apart from the main
     # path: their launches, and K1/K2 at the NARS and graph-level batches
     for key, k in zip(("f32", "bf16"), kernels[:2]):

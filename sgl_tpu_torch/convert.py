@@ -7,6 +7,9 @@ transposed.  Batch norms take ``scale``/``bias`` from ``params`` and their
 running ``mean``/``var`` from ``batch_stats``.  With it both packages
 compute the same function, which is how the parity tests hold the port
 against the reference.  A module with no mapping raises ``TypeError``.
+A NAS ``SearchModel`` of every message type is carried too: its concat
+widens the base model to ``feat_dim·(K+1)``, and type 8's ``simple``
+weights are a ``hop_weight`` of ``prop_steps + 1`` entries.
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ from sgl_tpu_torch.datasets.choose_edge_type import (  # noqa: F401
     remove_duplicate_edge_types,
 )
 from sgl_tpu_torch.datasets.hetero_datasets import Acm, Aminer, Dblp, DblpOriginal, Imdb  # noqa: F401
+from sgl_tpu_torch.datasets.ogbn import Ogbn, OgbnMag  # noqa: F401
 from sgl_tpu_torch.datasets.planetoid import Planetoid  # noqa: F401
 from sgl_tpu_torch.datasets.synthetic import (  # noqa: F401
     PlantedPartition,

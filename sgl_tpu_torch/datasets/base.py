@@ -4,9 +4,10 @@ Counterpart of ``sgl_tpu/datasets/base.py``: ``NodeDataset``,
 ``HeteroNodeDataset`` (with the NARS machinery: relation-subset subgraphs,
 metapath adjacencies, random relation subsets), ``GraphDataset`` (with its
 lazy block-diagonal batch) and ``random_split``.  Processed data are
-pickled host-numpy containers of this package.  Downloading is not part of
-this package: a loader whose raw files are missing raises, naming the files
-to place under its ``raw/`` directory.
+pickled host-numpy containers of this package.  A loader whose raw files
+are missing fetches them from its ``raw_urls`` (``datasets/utils.py::
+download_to``, then ``_post_download``, e.g. to unzip); offline, or with no
+known source, it raises an ``IOError`` naming the file and where to put it.
 """
 
 from __future__ import annotations
@@ -87,13 +88,35 @@ class _CachedDataset:
             return all(os.path.exists(p) for p in self.raw_file_paths)
         return os.path.isdir(self.raw_dir) and bool(os.listdir(self.raw_dir))
 
+    @property
+    def raw_urls(self) -> dict:
+        """``{raw file name: source URL}`` to fetch missing raw files from;
+        empty when the loader knows no source."""
+        return {}
+
+    def _post_download(self) -> None:
+        """Runs after the raw files are fetched (archive extraction)."""
+
     def _download(self) -> None:
+        """Fetch every missing ``raw_urls`` entry into ``raw_dir``, then
+        ``_post_download``; raise ``IOError`` naming the missing raw files
+        when no source is known."""
+        urls = self.raw_urls
+        if urls:
+            from sgl_tpu_torch.datasets.utils import download_to
+
+            for fname, url in urls.items():
+                path = os.path.join(self.raw_dir, fname)
+                if not os.path.exists(path):
+                    download_to(url, path)
+            self._post_download()
+            return
         names = [os.path.relpath(p, self.raw_dir) for p in self.raw_file_paths]
         missing = [n for n in names if not os.path.exists(os.path.join(self.raw_dir, n))]
         wanted = f": {', '.join(missing)}" if missing else ""
         raise IOError(
-            f"raw files for dataset {self.name!r} not found under {self.raw_dir}; "
-            f"sgl_tpu_torch does not download datasets, place the raw files there{wanted}"
+            f"raw files for dataset {self.name!r} not found under {self.raw_dir}, and no download "
+            f"source is known for this loader; place the raw files there{wanted}"
         )
 
     def _process(self):

@@ -22,8 +22,9 @@ does the SpMM work, end to end:
     python -m sgl_tpu_torch.examples.papers100m_pipeline [--bf16] [--store DIR]
     python -m sgl_tpu_torch.examples.papers100m_pipeline --toy   # 2,000 nodes, on the CPU
 
-The JAX example's ``--data`` (the real ogbn-papers100M raw dump) is left out
-until the port has the ``Ogbn`` loader (``ROADMAP.md``, queue 1 item 5).
+The JAX example's ``--data`` (the real ogbn-papers100M raw dump) is not
+ported yet; ``sgl_tpu_torch.datasets.Ogbn("papers100M", root)`` reads those
+files.
 """
 
 from __future__ import annotations

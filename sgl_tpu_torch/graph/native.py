@@ -9,12 +9,20 @@ port's own copy of those C++ functions, built at first use with
 (``kernels/_build.py::build_host``).  Every entry point keeps a numpy
 fallback that gives the same result (the sort: a stable ``argsort`` by
 dst, the same order); :func:`native_available` says which one runs.
+
+The csv parser (:func:`load_csv_native`, ``graph/csrc/csv_loader.cpp``,
+the port's own copy of ``sgl_tpu/csrc/csv_loader.cpp``) is a library of
+its own, so that a host without zlib keeps the graph builder: it is built
+with zlib when it can be (``-DSGL_CSV_ZLIB -lz``; the file is streamed
+and inflated in C++) and else without (Python inflates, the parse stays
+native).  Its callers fall back to ``numpy.loadtxt``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import gzip
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -24,6 +32,9 @@ import numpy.ctypeslib as ctl
 from sgl_tpu_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "graph_builder.cpp"
+CSV_SOURCE = Path(__file__).resolve().parent / "csrc" / "csv_loader.cpp"
+# dtype codes of sgl_csv_load / sgl_csv_parse
+_CSV_DTYPES = {np.dtype(np.float32): 0, np.dtype(np.int64): 1}
 
 
 @functools.cache
@@ -178,3 +189,72 @@ def build_normalized_adj_host(src, dst, val, num_nodes: int, r: float = 0.5):
     deg = compute_degrees(s, v, num_nodes)
     w = normalized_weights(s, d, v, deg, r)
     return sort_edges_by_dst(s, d, w, num_nodes)
+
+
+@functools.cache
+def _load_csv() -> Optional[Tuple[ctypes.CDLL, bool]]:
+    """``(library, has_zlib)``: the csv parser built with zlib, or without
+    it when that build fails; None when neither builds or loads."""
+    for flags, libs in ((["-DSGL_CSV_ZLIB"], ["-lz"]), ([], [])):
+        try:
+            lib = ctypes.CDLL(str(_build.build_host(CSV_SOURCE, flags, libs)))
+        except (RuntimeError, OSError, FileNotFoundError):
+            continue
+        out = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
+        lib.sgl_csv_load.argtypes = [ctypes.c_char_p, ctypes.c_int, *out]
+        lib.sgl_csv_parse.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, *out]
+        lib.sgl_csv_load.restype = lib.sgl_csv_parse.restype = ctypes.c_int64
+        lib.sgl_csv_has_zlib.argtypes = []
+        lib.sgl_csv_has_zlib.restype = ctypes.c_int
+        lib.sgl_buf_free.argtypes = [ctypes.c_void_p]
+        lib.sgl_buf_free.restype = None
+        return lib, bool(lib.sgl_csv_has_zlib())
+    return None
+
+
+def csv_native_available() -> bool:
+    """True when the native csv parser is built and loaded."""
+    return _load_csv() is not None
+
+
+def csv_native_zlib() -> bool:
+    """True when the native csv parser was built with zlib (it streams and
+    inflates the file itself); False when Python inflates for it or it is
+    missing."""
+    found = _load_csv()
+    return found is not None and found[1]
+
+
+def load_csv_native(path: str, dtype=np.float32) -> Optional[np.ndarray]:
+    """A headerless numeric csv or csv.gz parsed by the native parser, as a
+    2-D array; None when the parser is missing, the dtype is neither
+    float32 nor int64, or the text does not fit its strict numeric dialect
+    (callers fall back to ``numpy.loadtxt``)."""
+    dtype = np.dtype(dtype)
+    code = _CSV_DTYPES.get(dtype)
+    found = _load_csv()
+    if found is None or code is None:
+        return None
+    lib, zlib = found
+    data, rows, cols = ctypes.c_void_p(), ctypes.c_int64(), ctypes.c_int64()
+    refs = (ctypes.byref(data), ctypes.byref(rows), ctypes.byref(cols))
+    if zlib:
+        status = lib.sgl_csv_load(str(path).encode(), code, *refs)
+    else:
+        # gzread reads a plain file unchanged: inflate only gzip data
+        with open(path, "rb") as f:
+            text = f.read()
+        if text[:2] == b"\x1f\x8b":
+            text = gzip.decompress(text)
+        status = lib.sgl_csv_parse(text, len(text), code, *refs)
+    try:
+        if status != 0:
+            return None
+        n = rows.value * cols.value
+        if n == 0:
+            return np.zeros((rows.value, cols.value), dtype)
+        buf = (ctypes.c_char * (n * dtype.itemsize)).from_address(data.value)
+        return np.frombuffer(buf, dtype=dtype).reshape(rows.value, cols.value).copy()
+    finally:
+        if data.value:
+            lib.sgl_buf_free(data)

@@ -107,12 +107,14 @@ def build(names: Iterable[str] = SOURCES) -> List[Path]:
     return [library_path(n) for n in names]
 
 
-def build_host(src: Path) -> Path:
+def build_host(src: Path, flags: Sequence[str] = (), libs: Sequence[str] = ()) -> Path:
     """Build the host C++ source ``src`` with ``g++`` into
     ``sgl_tpu_torch/_build/`` (named by a hash of the source and the flags,
     as the kernels are) and return the library's path; raises when ``g++``
-    is missing or fails."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()
+    is missing or fails.  ``flags`` go before the source (``-D...``),
+    ``libs`` after it (``-lz``)."""
+    tag = " ".join([*GXX_FLAGS, *flags, *libs])
+    digest = hashlib.sha256(src.read_bytes() + tag.encode()).hexdigest()
     out = BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
     if out.exists():
         return out
@@ -121,7 +123,7 @@ def build_host(src: Path) -> Path:
         raise RuntimeError(f"g++ not found on $PATH; {src.name} is built from source at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([gxx, *GXX_FLAGS, *flags, "-o", str(tmp), str(src), *libs],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

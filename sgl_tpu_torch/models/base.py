@@ -87,18 +87,37 @@ class SGAPModel:
         # hop-major, as in sgl_tpu.
         self.node_major: bool = False
         self.processed_feature: Optional[torch.Tensor] = None  # (N, D') / (K+1, N, D) / (N, K+1, D)
+        # set by preprocess(prop_cache=...): amortized preprocess seconds
+        self.preprocess_time_estimate: Optional[float] = None
 
     # -- stage 1: pre-propagation (training-free) --------------------------
-    def preprocess(self, graph: Graph, x=None, dtype=None, device=None) -> None:
+    def preprocess(self, graph: Graph, x=None, dtype=None, device=None, prop_cache=None) -> None:
         """Run the training-free propagation on ``device`` (default: the
         GPU) and cache the result.  ``dtype=torch.bfloat16`` runs the whole
         precompute in bf16 (the CSR kernel's bf16 variant; half the hop
         memory); the default keeps f32.  A host hop store attached by
-        :meth:`attach_host_hops` is kept: it cannot be derived again here."""
+        :meth:`attach_host_hops` is kept: it cannot be derived again here.
+
+        ``prop_cache`` (a :class:`sgl_tpu_torch.search.prop_cache.
+        PropagationCache`) shares the hop stack across models on the same
+        graph, features and operator config, as NAS does; it sets
+        :attr:`preprocess_time_estimate` (amortized seconds, for the NAS
+        time objective).  The cache is keyed on the ``x`` object passed
+        here, before any conversion."""
         if hasattr(self.processed_feature, "rows"):
             return
         if x is None:
             x = graph.x
+        if prop_cache is not None and self.pre_graph_op is not None:
+            hops, est = prop_cache.hops_for(graph, x, self.pre_graph_op, dtype=dtype, device=device)
+            self.preprocess_time_estimate = est
+            if self.pre_msg_learnable:
+                self.processed_feature = hops.movedim(0, 1).contiguous() if self.node_major else hops
+            else:
+                # the stack is in the cache already, so the fused
+                # propagate_aggregate saves nothing: aggregate it eagerly
+                self.processed_feature = eager_aggregate(self.pre_msg_op, hops)
+            return
         x = torch.as_tensor(x)
         if dtype is not None:
             x = x.to(dtype)

@@ -1,16 +1,20 @@
 """The host-side helpers of ``chip_smoke.py`` that need no card."""
 
+import sys
+
+import numpy as np
 import pytest
 import torch
-
-import sys
 
 from chip_smoke import (
     GRAPH_STEPS,
     LABEL_WIDTHS,
     NARS_MODEL,
+    NAS_OGB,
+    NAS_SMALL_ARCHS,
     csr_bound,
     expected_hetero_launches,
+    expected_nas_launches,
     expected_label_launches,
     expected_ooc_launches,
     kernels_line,
@@ -96,9 +100,13 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
     ooc = dict(products={"1d f32": dict(form, key="f32"), "2d f32": dict(form, key="f32"),
                          "2d bf16": dict(form, key="bf16", launches=20)},
                papers=dict(launches=3, fixup_launches=3, peak_bytes=1))
+    nas = dict(launches=210, fixup_launches=210)
     line = kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo, label, hetero, ooc)
+                        dev_launches, dev_results, zoo, label, hetero, ooc, nas)
     kernels = line["kernels"]
+    # phase 11's, NAS, on K1 alone
+    assert (kernels[0]["nas_launches"], kernels[0]["nas_fixup_launches"]) == (210, 210)
+    assert all("nas_launches" not in k for k in kernels[1:])
     # phase 10's on K3 and K4: each out-of-core form's launches a hop, with its times
     k3, k4 = kernels[2], kernels[3]
     assert k3["name"] == "spmm_csr_acc_f32" and k4["name"] == "spmm_csr_acc_bf16"
@@ -108,7 +116,7 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
     # each out-of-core form's kernel-vs-twin error counts toward its row's
     ooc["products"]["2d bf16"]["max_rel_err"] = 0.25
     assert kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo, label, hetero, ooc)["kernels"][3]["max_rel_err"] == 0.25
+                        dev_launches, dev_results, zoo, label, hetero, ooc, nas)["kernels"][3]["max_rel_err"] == 0.25
     # phase 9's on K1 and K2, with their times at the NARS and graph-level batches
     assert [(k["hetero_launches"], k["hetero_fixup_launches"]) for k in kernels[:2]] == [(9, 0), (3, 0)]
     assert all(k["nars_batch"]["ms"] == 1.0 and k["graph_batch"]["bound_by"] == "bytes" for k in kernels[:2])
@@ -201,3 +209,71 @@ def test_busy_ms_is_the_union_of_intervals():
     assert busy_ms([]) == 0.0
     assert busy_ms([(0, 1000), (500, 1500), (3000, 4000)]) == pytest.approx(2.5)
     assert busy_ms([(0, 4000), (1000, 2000)]) == pytest.approx(4.0)
+
+
+def _cfg(post_steps, post_types=1):
+    return dict(prop_steps=2, prop_types=1, mesg_types=0, num_layers=1, post_steps=post_steps,
+                post_types=post_types, pmsg_types=0)
+
+
+@pytest.mark.parametrize("split_rows", [True, False])
+def test_expected_nas_launches_are_hops_computed_plus_post_steps(split_rows):
+    """The cache's hops computed plus each post-propagating trial's post
+    steps (a trial without a post graph op adds none), and as many fix-ups
+    when the graph's plan has split rows."""
+    from sgl_tpu_torch.search import History, PropagationCache
+
+    history = History()
+    for cfg in (_cfg(3), _cfg(1), _cfg(0), _cfg(4, post_types=0), _cfg(10)):
+        history.add(cfg, [-0.5, 0.1], 1.0)
+    cache = PropagationCache()
+    cache.hops_computed = 17
+    assert expected_nas_launches(history, cache, split_rows) == (31, 31 if split_rows else 0)
+
+
+def test_expected_nas_launches_count_what_a_search_launches(monkeypatch):
+    """On the CPU, with every product of the search counted by hand: a
+    short run of the seeded evolutionary search launches what the formula
+    says (pre-hops through the cache, then each trial's post-propagation)."""
+    from sgl_tpu_torch.datasets import PlantedPartition
+    from sgl_tpu_torch.search import ConfigManager, run_nas
+
+    mod = sys.modules["sgl_tpu_torch.kernels.spmm_csr"]
+    real = mod.spmm_csr
+    calls = []
+    monkeypatch.setattr(mod, "spmm_csr", lambda adj, x: calls.append(mod._plan(adj).num_long > 0)
+                        or real(adj, x))
+    ds = PlantedPartition(num_nodes=150, feat_dim=8, seed=1)
+    configer = ConfigManager([2, 1, 1, 2, 3, 1, 0], prop_steps=(1, 4), num_layers=(1, 2))
+    configer._setParameters(ds, "cpu", 8, epochs=2, lr=0.01, wd=5e-4, restarts=1)
+    history = run_nas(configer, max_runs=6, seed=1, verbose=False)
+    launches, fixups = expected_nas_launches(history, configer._prop_cache, any(calls))
+    assert launches == len(calls) > 6 and fixups == sum(calls)
+
+
+def test_nas_phase_settings():
+    """ogbn-arxiv's published shape; the small graph's archs cover every
+    message type, post message type and graph-op type."""
+    assert (NAS_OGB["num_nodes"], NAS_OGB["num_edges"], NAS_OGB["feat_dim"], NAS_OGB["num_classes"]) == (
+        169_343, 1_166_243, 128, 40)
+    assert sum(NAS_OGB["split"]) == NAS_OGB["num_nodes"]
+    assert sorted(a[2] for a in NAS_SMALL_ARCHS) == list(range(9))
+    assert set(a[6] for a in NAS_SMALL_ARCHS) == set(range(6))
+    assert set(a[1] for a in NAS_SMALL_ARCHS) == {1, 2, 3, 4} and all(a[4] and a[5] for a in NAS_SMALL_ARCHS)
+
+
+def test_write_ogb_raw_at_a_small_shape(tmp_path):
+    """The raw files phase 11 writes load through ``Ogbn`` with the
+    written edges, labels and split (at a small shape)."""
+    from chip_smoke import write_ogb_raw
+    from sgl_tpu_torch.datasets import Ogbn
+    from sgl_tpu_torch.datasets.utils import undirect_and_clean
+
+    shape = dict(NAS_OGB, num_nodes=500, num_edges=2000, split=(250, 100, 150))
+    raw = write_ogb_raw(str(tmp_path), shape)
+    ds = Ogbn("arxiv", str(tmp_path))
+    assert raw["edges"].shape == (2000, 2) and ds.num_node == 500 and ds.num_classes <= 40
+    s, d = undirect_and_clean(raw["edges"][:, 0], raw["edges"][:, 1])
+    assert ds.graph.num_edges == s.shape[0]
+    assert np.array_equal(ds.y, raw["y"]) and np.array_equal(ds.val_idx, raw["split"]["valid"])
+    np.testing.assert_allclose(ds.x, raw["x"], rtol=1e-5, atol=1e-5)

@@ -754,3 +754,62 @@ def test_host_hops_rows_on_the_card(cuda):
     for b, g in zip(batches, got):
         assert g.is_cuda
         assert torch.equal(g.cpu(), torch.from_numpy(np.stack(hops)[:, b]))
+
+
+@pytest.mark.parametrize("kind", ["laplacian", "ppr"])
+def test_prop_cache_on_the_card_is_direct_propagation(cuda, kind):
+    """The cache's first request, a prefix and an extension equal
+    ``GraphOp.propagate`` on the card: the extension runs the same kernel
+    launches on the same inputs, so bit for bit."""
+    from sgl_tpu_torch.ops import LaplacianGraphOp, PprGraphOp
+    from sgl_tpu_torch.search import PropagationCache
+
+    make = (lambda k: LaplacianGraphOp(k)) if kind == "laplacian" else (lambda k: PprGraphOp(k, alpha=0.2))
+    g = random_power_law_graph(6000, 12, 64, seed=5)
+    direct = make(5).propagate(g, g.x, device=cuda)
+    cache = PropagationCache()
+    before = spmm_csr.launches["f32"]
+    for k in (3, 2, 5):
+        hops, est = cache.hops_for(g, g.x, make(k), device=cuda)
+        assert hops.is_cuda and torch.equal(hops, direct[: k + 1]) and est > 0
+    assert spmm_csr.launches["f32"] - before == 5 == cache.hops_computed
+    assert (cache.misses, cache.hits) == (1, 2)
+
+
+def test_resumable_precompute_on_the_card(cuda, tmp_path):
+    """Stopped after hop 2 and resumed to 5: bit-equal to an uninterrupted
+    run on the card, within 1e-5 of the CPU path."""
+    from sgl_tpu_torch.utils import HopCheckpointer
+
+    g = random_power_law_graph(6000, 12, 64, seed=6)
+    adj = prepare_csr(symmetric_normalized_weights(g, device=cuda))
+    HopCheckpointer(str(tmp_path / "a")).propagate_resumable(adj, g.x, 2, device=cuda)
+    resumed = HopCheckpointer(str(tmp_path / "a")).propagate_resumable(adj, g.x, 5, device=cuda)
+    whole = HopCheckpointer(str(tmp_path / "b")).propagate_resumable(adj, g.x, 5, device=cuda)
+    assert resumed.is_cuda and torch.equal(resumed, whole)
+    adj_cpu = prepare_csr(symmetric_normalized_weights(g, device="cpu"))
+    on_cpu = HopCheckpointer(str(tmp_path / "c")).propagate_resumable(adj_cpu, g.x, 5, device="cpu")
+    torch.testing.assert_close(resumed.cpu(), on_cpu, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("msg", range(9))
+def test_search_model_on_the_card_matches_the_cpu(cuda, msg):
+    """One arch of each message type through a propagation cache: the
+    card's features and logits against the CPU path, the same weights."""
+    from sgl_tpu_torch.search import PropagationCache, SearchModel
+
+    arch = (1 + msg % 3, 1 + msg % 4, msg, 1 + msg % 3, 2, 1 + msg % 4, msg % 6)
+    ds = PlantedPartition(num_nodes=200, feat_dim=12, p_in=0.08, seed=4)
+    cpu_model = SearchModel(arch, ds.num_features, ds.num_classes, 16)
+    card_model = SearchModel(arch, ds.num_features, ds.num_classes, 16)
+    cpu_model.init(torch.Generator().manual_seed(msg))
+    card_model.net.load_state_dict(cpu_model.net.state_dict())
+    card_model.net.to(cuda)
+    out = []
+    for m, where in ((cpu_model, torch.device("cpu")), (card_model, cuda)):
+        m.preprocess(ds.graph, ds.x, device=where, prop_cache=PropagationCache())
+        with torch.no_grad():
+            logits = m.net(m.batch_input(torch.arange(ds.num_node, device=where)))
+        out.append((m.processed_feature.cpu(), logits.cpu(), m.postprocess(ds.graph, logits).cpu()))
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -11,7 +11,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("datasets", "dev", "etc", "examples", "graph", "kernels", "models", "ops", "tasks", "tricks", "utils")
+SUBPACKAGES = ("datasets", "dev", "etc", "examples", "graph", "kernels", "models", "ops", "search", "tasks", "tricks",
+               "utils")
 MODULES = [
     "sgl_tpu_torch", "sgl_tpu_torch.convert", "sgl_tpu_torch.kernels._build",
     "sgl_tpu_torch.examples.products_scale_demo", "sgl_tpu_torch.dev.exp_spmm",
@@ -28,12 +29,17 @@ MODULES = [
     "sgl_tpu_torch.models.graph_level", "sgl_tpu_torch.tasks.hetero_node_classification",
     "sgl_tpu_torch.tasks.graph_classification", "sgl_tpu_torch.etc.auto_select_edge_type_for_nars",
     "sgl_tpu_torch.kernels.spmm_ooc", "sgl_tpu_torch.utils.hop_store", "sgl_tpu_torch.examples.papers100m_pipeline",
+    "sgl_tpu_torch.search.base_search", "sgl_tpu_torch.search.search_models", "sgl_tpu_torch.search.prop_cache",
+    "sgl_tpu_torch.search.auto_search", "sgl_tpu_torch.search.search_config", "sgl_tpu_torch.search.smbo",
+    "sgl_tpu_torch.datasets.ogbn", "sgl_tpu_torch.utils.checkpoint", "sgl_tpu_torch.utils.profiling",
+    "sgl_tpu_torch.utils.device", "sgl_tpu_torch.examples.nas",
     "chip_smoke",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
 ]
-# the top-level packages the port never imports
-NEVER = ("jax", "flax", "optax", "sgl_tpu", "sklearn", "matplotlib", "ml_dtypes")
+# the top-level packages the port never imports (openbox: only inside the
+# search functions that use it)
+NEVER = ("jax", "flax", "optax", "sgl_tpu", "sklearn", "matplotlib", "ml_dtypes", "openbox")
 # word-bounded: ``sgl_tpu_torch`` is not ``sgl_tpu``; ``dev`` and ``exp_*``
 # are the JAX harnesses, which the port's ``sgl_tpu_torch.dev`` replaces
 FORBIDDEN = re.compile(
@@ -78,3 +84,12 @@ def test_forbidden_pattern_is_word_bounded():
     assert FORBIDDEN.search("    import matplotlib.pyplot as plt")
     assert not FORBIDDEN.search("import sklearn_like")
     assert FORBIDDEN.search("import ml_dtypes")
+    assert not FORBIDDEN.search("        from openbox import Optimizer")  # optional, inside a function
+
+
+def test_optional_openbox_is_imported_only_inside_functions():
+    """``search/`` reaches OpenBox only from inside the functions that
+    drive it: no module-level import."""
+    for path in sorted((ROOT / "sgl_tpu_torch" / "search").glob("*.py")):
+        top = re.findall(r"^(?:import|from)\s+openbox\b", path.read_text(), re.M)
+        assert not top, path
