@@ -136,15 +136,33 @@ Phases; any failure raises and the script exits non-zero:
    device time by kernel); the cache's stacks
    against ``GraphOp.propagate``; ``HopCheckpointer.propagate_resumable``
    stopped and resumed, bit-equal to an uninterrupted run;
-12. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
+12. the distributed runtime (``sgl_tpu_torch/parallel``): on phase 5's
+   products graph at P = 4, ``ring_bucket_work_time`` (the port of
+   ``spmm_dist.py:132``) f32 and bf16, its K3/K4 launches held, and each
+   of the 16 buckets' launch against its plain twin, timed alone beside
+   its bound, the twin and ``torch.sparse.mm``; then
+   ``NodeClassificationDist`` on the main path's dataset and widths through
+   ``sgl_tpu_torch.dev.dist_worker`` (``spmm_dist.py:777``'s port, one
+   process a rank): NCCL at one rank on a (1, 1) mesh, gloo at two ranks
+   on (1, 2) and four on (2, 2) with every rank on cuda:0 (the ring's blocks
+   through pinned host copies), GAMLP f32 in each, SGC with the bf16
+   precompute at two ranks, and the ring alone at four ranks on (1, 4);
+   each rank's K3/K4 launches held to the layout's count (a bucket a hop,
+   a fix-up for each bucket with a long row), its hop stack against the
+   single-device ``spmm_csr`` hops and a float64 propagation, the test
+   accuracy the same on every rank, the first data-parallel step's loss
+   and gradients against the one-rank run's; kernel and transfer ms a
+   ring step, ms a step;
+13. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
    (for K1–K4 and D2–D6 also the fix-up's; for K1/K2 also phase 7's, as
    ``zoo_launches``, and phase 9's, as ``hetero_launches``, with their
    times at the two phase-9 batches; for K1 also phase 8's, as
    ``label_launches``, with its label widths, its gradient and the NAFS
    product, and phase 11's, as ``nas_launches``; for K3/K4 phase 10's, as
-   ``ooc_launches``, with each form's hop times), errors and times beside
+   ``ooc_launches``, with each form's hop times, and phase 12's, as
+   ``ring_launches`` and ``ring_work``), errors and times beside
    its bound;
-13. print ``{"ok": true, "device": {...}}`` as the last line.
+14. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
 to it, and exits non-zero without printing a result when either is missing.
@@ -2416,6 +2434,277 @@ def nas_phase(dev) -> dict:
                 runs=runs, parse=parse, write_s=write_s, load_s=load_s, cache=cache_check, resume=resume)
 
 
+# -- phase 12: the distributed runtime ------------------------------------------------
+
+DIST_SOURCE = "sgl_tpu_torch/parallel/spmm_dist.py"
+# the two former K1 call sites of the ring: the per-bucket reduce and its timing
+DIST_REPLACES = {"ring": "sgl_tpu/parallel/spmm_dist.py:777", "work": "sgl_tpu/parallel/spmm_dist.py:132"}
+# ring_bucket_work_time on phase 5's products graph: P, and its timing protocol
+DIST_WORK = dict(parts=4, rounds=3, iters=2)
+# the main path's workload through NodeClassificationDist (phase 3's dataset,
+# GAMLP's widths and training; SGC with the bf16 precompute)
+DIST_DATASET = {"name": "SyntheticPowerLaw", "kwargs": ZOO_DATASET}
+DIST_TRAIN = dict(lr=0.1, weight_decay=5e-5, epochs=5)
+DIST_GAMLP = {"name": "GAMLP f32", "model": {"name": "GAMLP", "args": [3, 128, 64],
+                                             "kwargs": dict(hidden_dim=512, num_layers=3)}, "train": DIST_TRAIN}
+DIST_SGC = {"name": "SGC bf16", "model": {"name": "SGC", "args": [3, 128, 64]}, "train": DIST_TRAIN,
+            "precompute_dtype": "bfloat16"}
+DIST_HOPS4 = {"name": "hops (1, 4)", "hops_only": True, "mesh": [1, 4], "prop_steps": 3}
+# (label, ranks, mesh, backend, workload runs): NCCL does not take two ranks
+# on one card, so it runs alone; gloo ranks share cuda:0 and stage the ring's
+# blocks through pinned host buffers
+DIST_RUNS = (
+    ("nccl (1, 1)", 1, (1, 1), "nccl", (DIST_GAMLP,)),
+    ("gloo (1, 2)", 2, (1, 2), "gloo", (DIST_GAMLP, DIST_SGC)),
+    ("gloo (2, 2)", 4, (2, 2), "gloo", (DIST_GAMLP, DIST_HOPS4)),
+)
+DIST_LIMIT_S = 300  # a launch's limit, after which every rank is killed
+
+
+def bucket_bytes(part, d: int, elem: int) -> int:
+    """Compulsory bytes of one bucket's accumulating launch (the streaming
+    form of ``PERF.md`` §6 on one part): its row pointer, col and val, each
+    source row that a nonzero reads, once, and each non-empty f32 row read
+    and written once (the kernel skips an empty row; an unread source row
+    is never touched)."""
+    rows = int((part.rowptr[1:] > part.rowptr[:-1]).sum())
+    sources = int(torch.unique(part.col).numel())
+    return 4 * (part.num_rows + 1) + 8 * part.nnz + sources * d * elem + 2 * rows * d * 4
+
+
+def ring_work_probe(dev, graph) -> dict:
+    """``ring_bucket_work_time`` (``spmm_dist.py:132``'s port) on the products
+    graph at P = 4, f32 and bf16, its launches counted and held; then each
+    of the P² buckets' K3/K4 launch against its plain twin and timed alone,
+    beside its bound, the twin and ``torch.sparse.mm`` on the bucket."""
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.kernels import spmm_csr, spmm_csr_acc, spmm_csr_acc_reference
+    from sgl_tpu_torch.parallel import partition_adj_chunked, ring_bucket_work_time, ring_padding_stats
+
+    p = DIST_WORK["parts"]
+    t = time.perf_counter()
+    adj = symmetric_normalized_weights(graph, device=dev)
+    torch.cuda.synchronize()
+    normalize_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dadj = partition_adj_chunked(adj, p)
+    layout_s = time.perf_counter() - t
+    del adj
+    t = time.perf_counter()
+    buckets = [(o, b, part) for o in range(p) for b, part in enumerate(dadj.local(o, dev).buckets)]
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t
+    n_long = sum(part.plan.num_long > 0 for *_, part in buckets)
+    d = graph.num_features
+    log(f"[12] products graph at P = {p}: block {dadj.block}, {dadj.nnz} bucket nonzeros (padding ratio "
+        f"{ring_padding_stats(dadj)['ratio']:.1f}), diag {dadj.diag is not None}, out-hubs "
+        f"{0 if dadj.hub_ids is None else dadj.hub_ids.numel()}, dst-hubs "
+        f"{0 if dadj.hub_in_ids is None else dadj.hub_in_ids.numel()}; bucket nonzeros "
+        f"{[part.nnz for *_, part in buckets]}, {n_long} with a long row; normalize {normalize_s:.2f} s, layout "
+        f"{layout_s:.2f} s, buckets to the card {to_card_s:.2f} s")
+    hops = 1 + DIST_WORK["rounds"] * DIST_WORK["iters"]
+    results = {}
+    for key, dtype in DTYPES.items():
+        started = time.perf_counter()
+        reset_launches()
+        hop_s = ring_bucket_work_time(dadj, d, dtype=dtype, rounds=DIST_WORK["rounds"],
+                                      iters=DIST_WORK["iters"], device=dev)
+        launches = spmm_csr.launches["acc_" + key]
+        fixups = spmm_csr.fixup_launches["acc_" + key]
+        check((launches, fixups) == (hops * p * p, hops * n_long),
+              f"[12] ring_bucket_work_time {key}: launches {launches} + {fixups}, expected "
+              f"{hops * p * p} + {hops * n_long}")
+        x = torch.as_tensor(np.random.default_rng(1).standard_normal((p, dadj.block, d)), dtype=dtype).to(dev)
+        errs, ms, plain, lib = [], [], [], []
+        for o, b, part in buckets:
+            got = spmm_csr_acc(part, x[b], torch.zeros((dadj.block, d), device=dev))
+            want = spmm_csr_acc_reference(part, x[b], torch.zeros((dadj.block, d), device=dev))
+            errs.append(rel_err(got, want))
+            check(torch.isfinite(got).all().item() and errs[-1][1] <= TOL[key],
+                  f"[12] bucket ({o}, {b}) {key} vs its twin: {errs[-1][1]:.3e}")
+            acc = torch.zeros((dadj.block, d), device=dev)
+            ms.append(time_ms(lambda: spmm_csr_acc(part, x[b], acc), warmup=2, iters=10))
+            plain.append(time_ms(lambda: spmm_csr_acc_reference(part, x[b], acc), warmup=1, iters=2))
+            lib.append(library_time(part, x[b], want.to(dtype), 1, 5)[0])
+        nbytes = sum(bucket_bytes(part, d, x.element_size()) for *_, part in buckets)
+        b = bound(nbytes, dadj.nnz, d)
+        results[key] = dict(
+            launches=launches, fixup_launches=fixups, hop_ms=hop_s * 1e3, ms=sum(ms),
+            bucket_ms=ms, plain_ms=sum(plain), library_ms=None if None in lib else sum(lib),
+            max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs), **b,
+        )
+        log(f"[12] ring_bucket_work_time {key}: {hop_s * 1e3:.4f} ms a hop of {p * p} launches; "
+            f"launches {launches} + {fixups} fix-ups (held: {hops} hops); each bucket alone "
+            f"{[round(v, 4) for v in ms]} ms, sum {sum(ms):.4f}; vs twin max abs err "
+            f"{results[key]['max_abs_err']:.3e}, max rel err {results[key]['max_rel_err']:.3e} "
+            f"(limit {TOL[key]:.0e}); plain twin {sum(plain):.4f} ms; bound {b['bound_ms']:.4f} ms "
+            f"({nbytes / 1e9:.4f} GB at 3.35 TB/s); torch.sparse.mm on the buckets "
+            f"{results[key]['library_ms']}; {time.perf_counter() - started:.2f} s")
+        del x
+    del dadj, buckets
+    torch.cuda.empty_cache()
+    return results
+
+
+# Adam's eps (``adam_l2`` is ``torch.optim.Adam``'s defaults), and the margin
+# over eps and the gradients' difference at which an element's first
+# update no longer turns on rounding
+ADAM_EPS = 1e-8
+HELD_MARGIN = 1e3
+
+
+def adam_first_update(g, p, lr: float, wd: float):
+    """Adam's first step with the L2 term, in float64: ``(g', lr·g'/(|g'| +
+    eps), slack)`` with ``g' = g + wd·p``; ``slack`` bounds how far the
+    update moves when g' is off by the float32 rounding of ``g + wd·p``."""
+    gp = g + wd * p
+    rounding = 2.0 ** -22 * (np.abs(g) + wd * np.abs(p))
+
+    def ratio(v):
+        return v / (np.abs(v) + ADAM_EPS)
+
+    update = lr * ratio(gp)
+    slack = lr * np.maximum(np.abs(ratio(gp + rounding) - ratio(gp)), np.abs(ratio(gp - rounding) - ratio(gp)))
+    return gp, update, slack
+
+
+def first_step_check(base: dict, run: dict, lr: float, wd: float) -> dict:
+    """One run's first data-parallel step against the base run's, each a
+    dict ``{what: {name: array}}`` of ``params_before``, ``grads`` and
+    ``params``.  Adam's first update is ``lr·g'/(|g'| + eps)`` with
+    ``g' = g + wd·p``: about ±lr whatever |g'|, so where g' is within the
+    gradients' rounding of 0, rounding alone moves a parameter by up to
+    2·lr.  Returns ``start_err`` (starting parameters, max abs),
+    ``grad_err`` (max rel, by tensor), ``replay_err`` (each run's
+    parameters against Adam's update of its own gradients, every element,
+    beyond the slack of ``adam_first_update``), ``held_err`` (the runs'
+    parameters on the elements whose |g'| is at least ``HELD_MARGIN`` ×
+    (eps + the tensor's largest gradient difference); ``held`` of ``total``
+    elements) and ``worst``, the element where the parameters differ most,
+    with its g, g' and updates.  Errors are relative to the tensor's
+    largest parameter after the step."""
+    out = dict(start_err=0.0, grad_err=0.0, replay_err=0.0, held_err=0.0, held=0, total=0, worst=None)
+    for k in base["grads"]:
+        p0b, p0r, gb, gr, p1b, p1r = (np.asarray(d[what][k], np.float64)
+                                      for what in ("params_before", "grads", "params") for d in (base, run))
+        scale = max(float(np.abs(p1b).max()), 1e-30)
+        out["start_err"] = max(out["start_err"], float(np.abs(p0r - p0b).max()))
+        delta = float(np.abs(gr - gb).max())
+        out["grad_err"] = max(out["grad_err"], delta / max(float(np.abs(gb).max()), 1e-30))
+        (gpb, ub, slack_b), (gpr, ur, slack_r) = adam_first_update(gb, p0b, lr, wd), adam_first_update(gr, p0r, lr, wd)
+        for p0, p1, u, slack in ((p0b, p1b, ub, slack_b), (p0r, p1r, ur, slack_r)):
+            out["replay_err"] = max(out["replay_err"], float((np.abs(p1 - (p0 - u)) - slack).max()) / scale)
+        held = np.abs(gpb) >= HELD_MARGIN * (ADAM_EPS + delta)
+        diff = np.abs(p1r - p1b)
+        if held.any():
+            out["held_err"] = max(out["held_err"], float(diff[held].max()) / scale)
+        out["held"] += int(held.sum())
+        out["total"] += held.size
+        i = int(diff.argmax())
+        if out["worst"] is None or diff.flat[i] / scale > out["worst"]["rel"]:
+            out["worst"] = dict(param=k, rel=float(diff.flat[i]) / scale, g=(gb.flat[i], gr.flat[i]),
+                                g_l2=(gpb.flat[i], gpr.flat[i]), p=p0b.flat[i], update=(ub.flat[i], ur.flat[i]))
+    return out
+
+
+def first_steps(ranks, name: str) -> list:
+    """Each rank's first step of run ``name`` (``first_step_check``'s dicts)."""
+    whats = ("params_before", "grads", "params")
+    return [{what: {k[len(f"{name}.first_{what}."):]: v for k, v in r["arrays"].items()
+                    if k.startswith(f"{name}.first_{what}.")} for what in whats} for r in ranks]
+
+
+def dist_runs(tmp: str) -> dict:
+    """``NodeClassificationDist`` through ``dev/dist_worker.py``, each run a
+    launch of its own (``DIST_RUNS``; a world of one in this process, as
+    ``dist_worker.run_here``), every check made here on what the ranks
+    wrote."""
+    from sgl_tpu_torch.dev import dist_worker
+
+    out = {}
+    for label, world, mesh, backend, runs in DIST_RUNS:
+        spec = {"checks": ["workload"], "workload": {"dataset": DIST_DATASET, "runs": list(runs)}}
+        where = os.path.join(tmp, label.replace(" ", "_"))
+        t = time.perf_counter()
+        if world == 1:
+            ranks = dist_worker.run_here(mesh, spec, where, device="cuda", backend=backend)
+        else:
+            ranks = dist_worker.launch(world, mesh, spec, where, device="cuda", backend=backend,
+                                       limit_s=DIST_LIMIT_S)
+        out[label] = ranks
+        log(f"[12] {label}: {world} rank(s){' in this process' if world == 1 else ''}, backend "
+            f"{ranks[0]['backend']}, {time.perf_counter() - t:.2f} s; rank 0's seconds {ranks[0]['seconds']}, "
+            f"dataset {ranks[0]['dataset_s']:.2f} s")
+        for run in runs:
+            name = run["name"]
+            rows = [r[name] for r in ranks]
+            key = "bf16" if run.get("precompute_dtype") == "bfloat16" else "f32"
+            for r, row in zip(ranks, rows):
+                where = f"[12] {label} {name} rank {r['rank']}"
+                check(row["launches"] == row["want_launches"] and not row["other_launches"],
+                      f"{where}: launches {row['launches']} (others {row['other_launches']}), "
+                      f"expected {row['want_launches']}")
+                check(row["err_vs_single"] <= TOL[key], f"{where}: hops vs single-device {row['err_vs_single']:.3e}")
+                if key == "f32":
+                    check(row["err_vs_f64"] <= F64_TOL, f"{where}: hops vs float64 {row['err_vs_f64']:.3e}")
+            if "test_acc" in rows[0]:
+                accs = {row["test_acc"] for row in rows}
+                check(len(accs) == 1, f"[12] {label} {name}: test accuracy differs between ranks {accs}")
+            row = rows[0]
+            kernel = [round(v, 4) for v in row["kernel_ms"]]
+            transfer = [round(v, 4) for v in row["transfer_ms"] or []]
+            log(f"[12] {label} {name}: mesh {tuple(row['mesh'])}, launches a rank "
+                f"{[r[name]['launches'] for r in ranks]} (held), route {row['route']}; hops vs single-device "
+                f"{max(r[name]['err_vs_single'] for r in ranks):.3e}, vs float64 "
+                f"{max(r[name]['err_vs_f64'] for r in ranks):.3e} (single-device vs float64 "
+                f"{row['single_vs_f64']:.3e}); ring step kernel ms {kernel}, transfer ms {transfer}"
+                + (f"; DP step ms median {statistics.median(row['step_ms']):.3f} over {len(row['step_ms'])} "
+                   f"(the first {row['step_ms'][0]:.1f}); epoch s {[round(v, 3) for v in row['epoch_s']]}; "
+                   f"preprocess {row['preprocess_s']:.4f} s; test acc "
+                   f"{row['test_acc']:.4f} on every rank" if "step_ms" in row else "")
+                + f"; wall {row['wall_s']:.2f} s, references {row['reference_s']:.2f} s")
+    # the first data-parallel step of every run against the one-rank run's
+    base_rank = out[DIST_RUNS[0][0]][0]
+    name = DIST_GAMLP["name"]
+    base = first_steps([base_rank], name)[0]
+    lr, wd = DIST_GAMLP["train"]["lr"], DIST_GAMLP["train"]["weight_decay"]
+    for label, *_ in DIST_RUNS[1:]:
+        for r, first in zip(out[label], first_steps(out[label], name)):
+            loss_err = abs(r[name]["first_loss"] - base_rank[name]["first_loss"]) / abs(base_rank[name]["first_loss"])
+            c = first_step_check(base, first, lr, wd)
+            check(c["start_err"] == 0 and loss_err <= 1e-5 and c["grad_err"] <= 1e-5 and c["replay_err"] <= 1e-5
+                  and c["held_err"] <= 1e-5,
+                  f"[12] {label} rank {r['rank']}: first step vs (1, 1): start {c['start_err']:.3e}, loss "
+                  f"{loss_err:.3e}, gradients {c['grad_err']:.3e}, Adam replay {c['replay_err']:.3e}, "
+                  f"parameters held {c['held_err']:.3e}")
+            w = c["worst"]
+            log(f"[12] {label} rank {r['rank']}: first DP step vs the (1, 1) run (limit 1e-5 each): start "
+                f"{c['start_err']:.1e}, loss rel err {loss_err:.3e}, gradients max rel err {c['grad_err']:.3e}; "
+                f"parameters vs Adam's update of their own gradients (beyond the float32 rounding of g + wd·p) "
+                f"{c['replay_err']:.3e}; parameters vs "
+                f"(1, 1) {c['held_err']:.3e} on the {c['held']} of {c['total']} elements with |g + wd·p| >= "
+                f"{HELD_MARGIN:.0e} × (eps + the gradient difference); the worst element of all, in {w['param']}: "
+                f"{w['rel']:.3e} with g {w['g'][0]:.4e} / {w['g'][1]:.4e}, g + wd·p {w['g_l2'][0]:.4e} / "
+                f"{w['g_l2'][1]:.4e}, p {w['p']:.4e}, update {w['update'][0]:.4e} / {w['update'][1]:.4e}")
+    return out
+
+
+def dist_phase(dev, graph) -> dict:
+    """The distributed runtime (section 12 of the module docstring)."""
+    work = ring_work_probe(dev, graph)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = dist_runs(tmp)
+    # each instantiation's ring launches a rank, by run
+    ring = {"f32": {}, "bf16": {}}
+    for label, *_rest, specs in DIST_RUNS:
+        for run in specs:
+            key = "bf16" if run.get("precompute_dtype") == "bfloat16" else "f32"
+            ring[key][f"{label} {run['name']}"] = [
+                [r[run["name"]]["launches"]["acc_" + key], r[run["name"]]["launches"]["fixup_acc_" + key]]
+                for r in runs[label]]
+    return {"work": work, "ring_launches": ring}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs one GPU", file=sys.stderr)
@@ -2475,8 +2764,9 @@ def main() -> int:
     hetero = phase("9", hetero_phase, dev)
     ooc = phase("10", ooc_phase, dev, products_graph, products_refs)
     nas = phase("11", nas_phase, dev)
+    dist = phase("12", dist_phase, dev, products_graph)
     print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products,
-                                  dev_launches, dev_results, zoo_launches, label, hetero, ooc, nas)))
+                                  dev_launches, dev_results, zoo_launches, label, hetero, ooc, nas, dist)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
@@ -2484,7 +2774,7 @@ def main() -> int:
 
 
 def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
-                 zoo_launches, label, hetero, ooc, nas) -> dict:
+                 zoo_launches, label, hetero, ooc, nas, dist) -> dict:
     kernels = []
     for key in ("f32", "bf16"):
         r = bench[key]
@@ -2536,6 +2826,14 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
             kernels[-1]["ooc_launches"]["papers100m pipeline"] = [ooc["papers"]["launches"],
                                                                   ooc["papers"]["fixup_launches"]]
             kernels[-1]["papers100m"] = ooc["papers"]
+        # phase 12, the distributed ring, apart from the main path: each run's
+        # launches a rank (spmm_dist.py:777) and ring_bucket_work_time's
+        # launches and times on the products graph (spmm_dist.py:132)
+        kernels[-1]["ring_replaces"] = [DIST_REPLACES["ring"], DIST_REPLACES["work"]]
+        kernels[-1]["ring_launches"] = dist["ring_launches"][key]
+        kernels[-1]["ring_work"] = dist["work"][key]
+        kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], dist["work"][key]["max_abs_err"])
+        kernels[-1]["max_rel_err"] = max(kernels[-1]["max_rel_err"], dist["work"][key]["max_rel_err"])
     for key, r in dev_results.items():
         gather = key == "gather_sum"
         kernels.append({

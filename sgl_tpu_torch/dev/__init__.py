@@ -12,7 +12,11 @@
   segment-reduce kernel's;
 * :mod:`sgl_tpu_torch.dev.ooc_probe` — where an out-of-core hop's time
   goes: the host's share by step and the card's trace, checked for
-  completeness (``chip_smoke.py`` phase 10 uses its helpers).
+  completeness (``chip_smoke.py`` phase 10 uses its helpers);
+* :mod:`sgl_tpu_torch.dev.dist_worker` — one rank of a distributed check
+  and the launcher of its ranks (the distributed tests and
+  ``chip_smoke.py`` phase 12 use it; ``--device cpu`` runs gloo ranks on
+  the CPU).
 
 Each runs on the GPU unless ``--device cpu`` is given, and imports nothing
 of JAX, ``sgl_tpu`` or ``dev/``.  Times are CUDA events on the card and the

@@ -114,11 +114,19 @@ class PReLU(nn.Module):
 class FastDropout(nn.Module):
     """Inverted dropout from uint8 random bits: keep where
     ``bits < round(keep_prob * 256)`` and scale by the quantized keep
-    probability ``256 / keep_q`` so the expectation stays exact."""
+    probability ``256 / keep_q`` so the expectation stays exact.
+
+    ``generator`` is a ``torch.Generator``, or any object with a
+    ``bits(shape, device)`` method returning uint8 bits (bits recorded
+    elsewhere, replayed).  ``batch_rows = (total, lo, hi)`` makes a rank of
+    a data-parallel step draw the bits of the whole ``total``-row batch and
+    keep rows ``[lo, hi)``, so its mask is the single-device step's
+    (``parallel/train_dist.py`` sets it around a step)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.batch_rows = None
 
     def forward(self, x: torch.Tensor, train: bool, generator=None) -> torch.Tensor:
         if self.rate == 0.0 or not train:
@@ -126,9 +134,13 @@ class FastDropout(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep_q = min(max(int(round((1.0 - self.rate) * 256.0)), 1), 255)
-        bits = torch.randint(
-            0, 256, x.shape, dtype=torch.uint8, device=x.device, generator=generator
-        )
+        shape = x.shape if self.batch_rows is None else (self.batch_rows[0], *x.shape[1:])
+        if hasattr(generator, "bits"):
+            bits = generator.bits(shape, x.device)
+        else:
+            bits = torch.randint(0, 256, shape, dtype=torch.uint8, device=x.device, generator=generator)
+        if self.batch_rows is not None:
+            bits = bits[self.batch_rows[1]:self.batch_rows[2]]
         return torch.where(bits < keep_q, x * (256.0 / keep_q), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -1,4 +1,5 @@
 from sgl_tpu_torch.tasks.node_classification import NodeClassification  # noqa: F401
+from sgl_tpu_torch.tasks.node_classification_dist import NodeClassificationDist  # noqa: F401
 from sgl_tpu_torch.tasks.graph_classification import GraphClassification  # noqa: F401
 from sgl_tpu_torch.tasks.correct_and_smooth import (  # noqa: F401
     NodeClassification_With_CorrectAndSmooth,

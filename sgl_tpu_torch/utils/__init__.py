@@ -11,7 +11,7 @@ from sgl_tpu_torch.utils.checkpoint import (  # noqa: F401
     save_pytree,
     save_train_state,
 )
-from sgl_tpu_torch.utils.config import TrainConfig  # noqa: F401
+from sgl_tpu_torch.utils.config import MeshConfig, TrainConfig  # noqa: F401
 from sgl_tpu_torch.utils.device import (  # noqa: F401
     GpuWithMaxFreeMem,
     default_backend,

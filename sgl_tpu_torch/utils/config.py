@@ -1,8 +1,8 @@
 """One dataclass config layer serving constructor-kwargs, CLI, and NAS roles.
 
-The port's own copy of ``sgl_tpu/utils/config.py::TrainConfig`` (the port
-imports nothing of ``sgl_tpu``); ``NodeClassification`` resolves its
-defaults through it.
+The port's own copy of ``sgl_tpu/utils/config.py``'s ``TrainConfig`` and
+``MeshConfig`` (the port imports nothing of ``sgl_tpu``); ``NodeClassification``
+resolves its defaults through ``TrainConfig``.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -60,3 +60,16 @@ class TrainConfig:
         for k, v in overrides.items():
             out[k] = v if v is not None else getattr(self, k)
         return out
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """Mesh layout for the distributed runtime: ``data`` ranks split each
+    batch, ``graph`` ranks split the nodes of the propagation ring."""
+
+    data: int = 1
+    graph: int = 1
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.graph)

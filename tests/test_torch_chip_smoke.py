@@ -101,9 +101,17 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
                          "2d bf16": dict(form, key="bf16", launches=20)},
                papers=dict(launches=3, fixup_launches=3, peak_bytes=1))
     nas = dict(launches=210, fixup_launches=210)
+    work = {k: dict(probe, launches=112, fixup_launches=0, hop_ms=2.0, max_abs_err=0.0, max_rel_err=0.0)
+            for k in ("f32", "bf16")}
+    dist = dict(work=work, ring_launches={"f32": {"gloo (1, 2) GAMLP f32": [[6, 3], [6, 3]]},
+                                          "bf16": {"gloo (1, 2) SGC bf16": [[6, 3], [6, 3]]}})
     line = kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo, label, hetero, ooc, nas)
+                        dev_launches, dev_results, zoo, label, hetero, ooc, nas, dist)
     kernels = line["kernels"]
+    # phase 12's on K3 and K4: each run's ring launches a rank, and the bucket work
+    assert kernels[2]["ring_launches"] == {"gloo (1, 2) GAMLP f32": [[6, 3], [6, 3]]}
+    assert kernels[3]["ring_work"]["hop_ms"] == 2.0 and "ring_work" not in kernels[0]
+    assert kernels[2]["ring_replaces"] == ["sgl_tpu/parallel/spmm_dist.py:777", "sgl_tpu/parallel/spmm_dist.py:132"]
     # phase 11's, NAS, on K1 alone
     assert (kernels[0]["nas_launches"], kernels[0]["nas_fixup_launches"]) == (210, 210)
     assert all("nas_launches" not in k for k in kernels[1:])
@@ -116,7 +124,7 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
     # each out-of-core form's kernel-vs-twin error counts toward its row's
     ooc["products"]["2d bf16"]["max_rel_err"] = 0.25
     assert kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo, label, hetero, ooc, nas)["kernels"][3]["max_rel_err"] == 0.25
+                        dev_launches, dev_results, zoo, label, hetero, ooc, nas, dist)["kernels"][3]["max_rel_err"] == 0.25
     # phase 9's on K1 and K2, with their times at the NARS and graph-level batches
     assert [(k["hetero_launches"], k["hetero_fixup_launches"]) for k in kernels[:2]] == [(9, 0), (3, 0)]
     assert all(k["nars_batch"]["ms"] == 1.0 and k["graph_batch"]["bound_by"] == "bytes" for k in kernels[:2])
@@ -277,3 +285,68 @@ def test_write_ogb_raw_at_a_small_shape(tmp_path):
     assert ds.graph.num_edges == s.shape[0]
     assert np.array_equal(ds.y, raw["y"]) and np.array_equal(ds.val_idx, raw["split"]["valid"])
     np.testing.assert_allclose(ds.x, raw["x"], rtol=1e-5, atol=1e-5)
+
+
+def test_bucket_bytes_count_one_accumulating_launch():
+    """A ring bucket's compulsory bytes: the row pointer, col and val, each
+    source row a nonzero reads once, each non-empty f32 row read and written
+    once; an empty row and an unread source row cost nothing."""
+    import torch
+
+    from chip_smoke import bucket_bytes
+    from sgl_tpu_torch.kernels import CsrPart
+
+    rowptr = torch.tensor([0, 2, 2, 5], dtype=torch.int32)
+    part = CsrPart(rowptr, torch.zeros(5, dtype=torch.int32), torch.ones(5), 0, 3, 3)
+    # two non-empty rows, one source row (column 0)
+    assert bucket_bytes(part, 8, 4) == 4 * 4 + 8 * 5 + 1 * 8 * 4 + 2 * 2 * 8 * 4
+    assert bucket_bytes(part, 8, 2) == 4 * 4 + 8 * 5 + 1 * 8 * 2 + 2 * 2 * 8 * 4
+    # the same rows reading columns 0, 2 and 2 again: two source rows
+    part = CsrPart(rowptr, torch.tensor([0, 2, 2, 0, 2], dtype=torch.int32), torch.ones(5), 0, 3, 3)
+    assert bucket_bytes(part, 8, 4) == 4 * 4 + 8 * 5 + 2 * 8 * 4 + 2 * 2 * 8 * 4
+
+
+def test_first_step_check_holds_adam_and_finds_the_rounding_flip():
+    """Adam's first step from the same parameters on gradients a rounding
+    apart: the parameters agree where |g + wd·p| is clear of eps and the
+    rounding, the one element where it is not differs most, and a wrong
+    weight decay fails the replay (on the units with no gradient)."""
+    import torch
+
+    from chip_smoke import first_step_check
+    from sgl_tpu_torch.tasks.utils import adam_l2
+
+    rng = np.random.default_rng(0)
+    lr, wd = 0.1, 5e-5
+    p0 = (rng.standard_normal((64, 32)) * 0.1).astype(np.float32)
+    g = (rng.standard_normal((64, 32)) * 1e-3).astype(np.float32)
+    g[0, :8] = 0  # dead units: g + wd·p = wd·p
+    g[1, 0] = np.float32(-wd * float(p0[1, 0]))  # g + wd·p within a rounding of 0
+
+    def step(grad, weight_decay=wd):
+        p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+        opt = adam_l2([p], lr, weight_decay)
+        p.grad = torch.from_numpy(grad.copy())
+        opt.step()
+        return {"params_before": {"w": p0}, "grads": {"w": grad}, "params": {"w": p.detach().numpy().copy()}}
+
+    base = step(g)
+    g_run = (g * np.float32(1 + 1e-6)).astype(np.float32)
+    g_run[1, 0] += np.float32(1e-9)  # a rounding of the largest gradients, a tenth of eps
+    c = first_step_check(base, step(g_run), lr, wd)
+    assert c["start_err"] == 0 and c["grad_err"] <= 1e-5 and c["replay_err"] <= 1e-5 and c["held_err"] <= 1e-5
+    assert 0.9 * c["total"] < c["held"] < c["total"] == g.size
+    assert c["worst"]["rel"] > 1e-3 and abs(c["worst"]["g_l2"][0]) < 1e-9
+    assert first_step_check(base, step(g_run, 2 * wd), lr, wd)["replay_err"] > 1e-4
+
+
+def test_dist_runs_cover_every_backend_and_ring_size():
+    """Phase 12's runs: NCCL alone, gloo at two and four ranks; the ring at
+    P = 1, 2 and 4; GAMLP in every run, so the first steps compare."""
+    from chip_smoke import DIST_GAMLP, DIST_RUNS
+
+    assert [(w, m, b) for _, w, m, b, _ in DIST_RUNS] == [(1, (1, 1), "nccl"), (2, (1, 2), "gloo"),
+                                                          (4, (2, 2), "gloo")]
+    rings = {tuple(r.get("mesh", m))[1] for _, _, m, _, runs in DIST_RUNS for r in runs}
+    assert rings == {1, 2, 4}
+    assert all(DIST_GAMLP in runs for *_, runs in DIST_RUNS)

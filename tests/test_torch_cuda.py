@@ -813,3 +813,47 @@ def test_search_model_on_the_card_matches_the_cpu(cuda, msg):
         out.append((m.processed_feature.cpu(), logits.cpu(), m.postprocess(ds.graph, logits).cpu()))
     for got, want in zip(out[1], out[0]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ring_buckets_on_the_card_match_the_cpu_path(cuda, dtype):
+    """Every (owner, source block) bucket of the chunked ring layout, reduced
+    by K3/K4 on the card into each owner's rows, against the CPU path."""
+    from sgl_tpu_torch.parallel import partition_adj_chunked
+
+    g = random_power_law_graph(20_000, 3, 8, seed=0, alpha=1.5)
+    dadj = partition_adj_chunked(symmetric_normalized_weights(g, device="cpu"), 4)
+    x = torch.randn(4, dadj.block, 32, generator=torch.Generator().manual_seed(0)).to(dtype)
+    for o in range(4):
+        got = torch.zeros(dadj.block, 32, device=cuda)
+        want = torch.zeros(dadj.block, 32)
+        for b in range(4):
+            spmm_csr_acc(dadj.local(o, cuda).buckets[b], x[b].to(cuda), got)
+            spmm_csr_acc(dadj.local(o, "cpu").buckets[b], x[b], want)
+        err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        assert err <= 1e-5, (o, err)
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 (``dev/dist_worker.py``): the ring's blocks go
+    through pinned host copies, and both layouts' hops match the one-device
+    K1 hops."""
+    from sgl_tpu_torch.dev import dist_worker
+    from sgl_tpu_torch.ops.graph_ops import k_hop_propagate
+
+    g = random_power_law_graph(20_000, 3, 8, seed=0, alpha=1.5)
+    adj = symmetric_normalized_weights(g, device="cpu")
+    x = np.asarray(g.x, np.float32)
+    np.savez(tmp_path / "in.npz", src=adj.src.numpy(), dst=adj.dst.numpy(), w=adj.w.numpy(),
+             num_nodes=g.num_nodes, x=x, prop_steps=2, ids=np.array([0, 5, g.num_nodes - 1]))
+    ranks = dist_worker.launch(2, (1, 2), {"checks": ["ring"], "inputs": str(tmp_path / "in.npz")},
+                               str(tmp_path / "out"), device="cuda", backend="gloo", limit_s=240)
+    want = k_hop_propagate(prepare_csr(symmetric_normalized_weights(g, device=cuda)),
+                           torch.as_tensor(x, device=cuda), 2).cpu().numpy()
+    for r in ranks:
+        for layout in ("segment", "chunked"):
+            assert r[f"{layout}_f32_route"] == "gloo, pinned host copies"
+            got = r["arrays"][f"{layout}_f32_full"]
+            assert np.abs(got - want).max() / np.abs(want).max() <= 1e-5, layout
+            got = r["arrays"][f"{layout}_bf16_gather"]
+            assert np.abs(got - want).max() / np.abs(want).max() <= 3e-2, layout

@@ -11,8 +11,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("datasets", "dev", "etc", "examples", "graph", "kernels", "models", "ops", "search", "tasks", "tricks",
-               "utils")
+SUBPACKAGES = ("datasets", "dev", "etc", "examples", "graph", "kernels", "models", "ops", "parallel", "search", "tasks",
+               "tricks", "utils")
 MODULES = [
     "sgl_tpu_torch", "sgl_tpu_torch.convert", "sgl_tpu_torch.kernels._build",
     "sgl_tpu_torch.examples.products_scale_demo", "sgl_tpu_torch.dev.exp_spmm",
@@ -33,6 +33,9 @@ MODULES = [
     "sgl_tpu_torch.search.auto_search", "sgl_tpu_torch.search.search_config", "sgl_tpu_torch.search.smbo",
     "sgl_tpu_torch.datasets.ogbn", "sgl_tpu_torch.utils.checkpoint", "sgl_tpu_torch.utils.profiling",
     "sgl_tpu_torch.utils.device", "sgl_tpu_torch.examples.nas",
+    "sgl_tpu_torch.parallel.mesh", "sgl_tpu_torch.parallel.spmm_dist", "sgl_tpu_torch.parallel.train_dist",
+    "sgl_tpu_torch.tasks.node_classification_dist", "sgl_tpu_torch.search.auto_search_dist",
+    "sgl_tpu_torch.dev.dist_worker", "sgl_tpu_torch.examples.nodeclass_dist", "sgl_tpu_torch.examples.nas_dist",
     "chip_smoke",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
