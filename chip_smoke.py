@@ -153,16 +153,36 @@ Phases; any failure raises and the script exits non-zero:
    accuracy the same on every rank, the first data-parallel step's loss
    and gradients against the one-rank run's; kernel and transfer ms a
    ring step, ms a step;
-13. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
+13. the dataset loaders and the examples (``sgl_tpu_torch/datasets``,
+   ``sgl_tpu_torch/examples``): raw files of every loader's format written
+   from a seed (``datasets.raw_files``) into a temporary directory, no
+   network; every loader at a few hundred nodes (Reddit's zip and NELL's
+   tarball unpacked by the loader) with SGC(2) through its task on the
+   card, K1's launches counted, the logits against the CPU path from the
+   same weights; Flickr at its published shape (89,250 nodes, 899,756
+   stored nonzeros, 500 features, 7 classes), its hops against the CPU
+   path at full size and K1 at D = 500; ``set_default_backend`` on Flickr's
+   hop ("segment" launches no K1); the six examples' ``main`` on the card
+   (sgc_pubmed on Planetoid files at pubmed's shape, the rest on their
+   fallbacks with ``urlopen`` stubbed out) and the papers100M pipeline's
+   ``--data`` on OGB files; then Reddit at its published shape (232,965
+   nodes, 114,615,892 stored nonzeros, 602 features, 41 classes): the
+   files' write, ``Reddit(root)`` and ``Graph.from_coo`` timed, SGC(2)
+   and GAMLP (hidden 512, 3 layers) for 5 epochs each with their launches
+   held, the first hop against a float64 sum over 1,025 rows (the longest
+   among them), and K1 at D = 602 against the plain version by blocks of
+   rows, timed beside its bound and ``torch.sparse.mm``;
+14. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
    (for K1–K4 and D2–D6 also the fix-up's; for K1/K2 also phase 7's, as
    ``zoo_launches``, and phase 9's, as ``hetero_launches``, with their
    times at the two phase-9 batches; for K1 also phase 8's, as
    ``label_launches``, with its label widths, its gradient and the NAFS
    product, and phase 11's, as ``nas_launches``; for K3/K4 phase 10's, as
    ``ooc_launches``, with each form's hop times, and phase 12's, as
-   ``ring_launches`` and ``ring_work``), errors and times beside
-   its bound;
-14. print ``{"ok": true, "device": {...}}`` as the last line.
+   ``ring_launches`` and ``ring_work``; for K1 phase 13's, as
+   ``loader_launches``, with its times at Reddit's and Flickr's shapes
+   under ``shapes``), errors and times beside its bound;
+15. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
 to it, and exits non-zero without printing a result when either is missing.
@@ -184,6 +204,7 @@ import torch
 
 # CUDA-event medians, (max abs, max rel) errors and the H100 SXM's published
 # HBM3 bandwidth: the helpers the ported dev/ harnesses time and compare with
+from sgl_tpu_torch.datasets import raw_files
 from sgl_tpu_torch.dev import HBM_BYTES_PER_S, rel_err, time_ms
 from sgl_tpu_torch.dev.ooc_probe import copy_ms, device_overlap, host_split
 
@@ -2139,15 +2160,17 @@ NAS_SMALL_ARCHS = tuple((1 + m % 3, 1 + m % 4, m, 1 + m % 3, 1 + (m + 1) % 3, 1 
 NAS_RESUME = (2, 5)
 
 
-def write_ogb_raw(root: str, shape: dict = None) -> dict:
+def write_ogb_raw(root: str, shape: dict = None, name: str = "arxiv") -> dict:
     """OGB raw files of ``shape`` in the standard layout under
-    ``root/ogbn/arxiv/ogbn_arxiv`` (what ``Ogbn("arxiv", root)`` reads), gzip
-    level 1, from ``SyntheticPowerLaw``: ``num_edges`` of its edges, each
-    drawn pair once in a seeded order, its features and labels, and a
-    seeded split.  Returns the arrays written and the paths."""
+    ``root/ogbn/<name>/ogbn_<name>`` (what ``Ogbn(name, root)`` reads, the
+    split under the dataset's official split directory), gzip level 1,
+    from ``SyntheticPowerLaw``: ``num_edges`` of its edges, each drawn pair
+    once in a seeded order, its features and labels, and a seeded split.
+    Returns the arrays written and the paths."""
     import gzip
 
     from sgl_tpu_torch.datasets import SyntheticPowerLaw
+    from sgl_tpu_torch.datasets.ogbn import _SPLIT_DIRS
 
     shape = shape or NAS_OGB
     n, e = shape["num_nodes"], shape["num_edges"]
@@ -2162,9 +2185,10 @@ def write_ogb_raw(root: str, shape: dict = None) -> dict:
     perm = rng.permutation(n)
     n_train, n_valid, _ = shape["split"]
     split = {"train": perm[:n_train], "valid": perm[n_train:n_train + n_valid], "test": perm[n_train + n_valid:]}
-    d = os.path.join(root, "ogbn", "arxiv", "ogbn_arxiv")
+    d = os.path.join(root, "ogbn", name, f"ogbn_{name}")
+    split_dir = os.path.join("split", _SPLIT_DIRS[name])
     os.makedirs(os.path.join(d, "raw"), exist_ok=True)
-    os.makedirs(os.path.join(d, "split", "time"), exist_ok=True)
+    os.makedirs(os.path.join(d, split_dir), exist_ok=True)
 
     def write(rel, arr, fmt):
         path = os.path.join(d, rel)
@@ -2178,7 +2202,7 @@ def write_ogb_raw(root: str, shape: dict = None) -> dict:
         "node-label": write("raw/node-label.csv.gz", np.asarray(ds.y)[:, None], "%d"),
     }
     for part, idx in split.items():
-        paths[part] = write(f"split/time/{part}.csv.gz", idx[:, None], "%d")
+        paths[part] = write(os.path.join(split_dir, f"{part}.csv.gz"), idx[:, None], "%d")
     return dict(paths=paths, edges=edges, x=ds.x, y=np.asarray(ds.y), split=split)
 
 
@@ -2705,6 +2729,396 @@ def dist_phase(dev, graph) -> dict:
     return {"work": work, "ring_launches": ring}
 
 
+# -- phase 13: the dataset loaders and the examples -----------------------------------
+
+# every loader at a small size: raw files from a seed, SGC(2) through the
+# task on the card, the logits against the port's CPU path from the same
+# weights
+LOADER_SMALL = dict(num_nodes=400, num_features=32, num_classes=5, avg_degree=8)
+LOADER_TRAIN = dict(lr=0.1, weight_decay=5e-5, epochs=3, seed=0)
+# the published shapes of Reddit (DGL) and Flickr (GraphSAINT); Reddit's
+# edges are the only thing a time budget may cut (``REDDIT_EDGE_SHARE``)
+REDDIT_SHAPE = dict(raw_files.REDDIT)
+REDDIT_EDGE_SHARE = 1.0
+FLICKR_SHAPE = dict(raw_files.FLICKR)
+# the SGC paper's setting for Reddit (two hops), and GAMLP at the main
+# path's widths; 5 epochs each, Flickr's SGC too
+REDDIT_MODELS = {"SGC": dict(prop_steps=2), "GAMLP": dict(prop_steps=3, hidden_dim=512, num_layers=3)}
+SHAPE_TRAIN = dict(lr=0.1, weight_decay=5e-5, epochs=5, seed=0)
+# Reddit's first hop against a float64 sum over these rows and the longest
+# row; the plain version by blocks of rows (the whole graph's x[src] is
+# 276 GB)
+REDDIT_F64_ROWS = 1024
+REDDIT_PLAIN_BLOCKS = 64
+# the examples: short runs, sgc_pubmed on Planetoid files at pubmed's shape
+# (``write_raw_files``' defaults), papers100M's --data on a small OGB fixture
+EXAMPLE_EPOCHS = 5
+EXAMPLE_PUBMED = {}
+PAPERS_DATA = dict(NAS_OGB, num_nodes=20_000, num_edges=120_000, feat_dim=128, num_classes=32,
+                   split=(10_000, 4_000, 6_000))
+PAPERS_ARGS = ["--epochs", "2", "--batch", "5000", "--part-edges", str(1 << 16)]
+
+
+# what the JSON line keeps of K1 at Reddit's and Flickr's shapes
+SHAPE_KEYS = ("n", "nnz", "d", "launches", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+              "max_rel_err")
+
+
+def on_card(t, what: str) -> None:
+    check(t.is_cuda, f"[13] {what}: not on the card")
+
+
+def offline_urlopen(asked: list):
+    """A stand-in for ``urllib.request.urlopen`` that fails at once and
+    notes the URL: a loader without its raw files falls back, and nothing
+    reaches the network."""
+    def urlopen(url, *a, **k):
+        asked.append(url)
+        raise OSError("no network in the smoke run")
+    return urlopen
+
+
+def same_weights_logits(model, host, n: int, dev, what: str) -> float:
+    """The trained card model's logits for ``n`` nodes against ``host``'s
+    (preprocessed on the CPU), ``host`` given the card model's weights."""
+    host.init(torch.Generator().manual_seed(0))
+    host.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
+    with torch.no_grad():
+        got = model.apply(torch.arange(n, device=dev))
+        want = host.apply(torch.arange(n))
+    on_card(got, f"{what} logits")
+    return rel_err(got.cpu(), want)[1]
+
+
+def loader_runs(dev, root: str) -> dict:
+    """Every loader of ``raw_files.LOADERS`` at ``LOADER_SMALL``: files
+    written (Reddit's zip and NELL's tarball as the download brings them,
+    unpacked by the loader), the dataset loaded, SGC(2) on the card through
+    its task, K1's launches counted, the logits against the CPU path."""
+    from sgl_tpu_torch import datasets
+    from sgl_tpu_torch.models import SGC, Fast_NARS_SGC_WithLearnableWeights
+    from sgl_tpu_torch.tasks import HeteroNodeClassification, NodeClassification
+
+    out = {}
+    for name in raw_files.LOADERS:
+        sub = os.path.join(root, name)
+        kw = raw_files.write_loader_files(name, sub + "/", seed=0, downloaded=name in ("Reddit", "Nell"),
+                                          **LOADER_SMALL)
+        ds = getattr(datasets, name)(root=sub + "/", **kw)
+        if name == "Custom_Hetero":
+            d = np.shape(ds.data["paper"].x)[1]
+            make = lambda: Fast_NARS_SGC_WithLearnableWeights(2, d, ds.num_classes, 16, 2, 1)  # noqa: E731
+            sub_kw = dict(random_subgraph_num=1, subgraph_edge_type_num=2)
+            model = make()
+            task, seconds, counts, fixups, _ = count_launches(lambda: HeteroNodeClassification(
+                ds, "paper", model, device=dev, verbose=False, **sub_kw, **LOADER_TRAIN))
+            host = make()
+            host.preprocess(ds, "paper", device="cpu", **sub_kw)
+            check(host.subgraph_keys == model.subgraph_keys, f"[13] {name}: subsets differ")
+        else:
+            model = SGC(2, ds.num_features, ds.num_classes)
+            task, seconds, counts, fixups, _ = count_launches(lambda: NodeClassification(
+                ds, model, device=dev, verbose=False, **LOADER_TRAIN))
+            host = SGC(2, ds.num_features, ds.num_classes)
+            host.preprocess(ds.graph, ds.x, device="cpu")
+        n = ds.data.num_node["paper"] if name == "Custom_Hetero" else ds.num_node
+        on_card(model.processed_feature, f"{name} features")
+        err = same_weights_logits(model, host, n, dev, name)
+        check(err <= TOL["f32"], f"[13] {name}: logits card vs CPU {err:.3e}")
+        check(counts["f32"] >= 2, f"[13] {name}: K1 launches {counts}, expected >= 2 (two hops)")
+        check(0.0 <= task.test_acc <= 1.0, f"[13] {name}: test accuracy {task.test_acc}")
+        out[name] = dict(nodes=n, launches=counts["f32"], fixups=fixups["f32"], err=err, seconds=seconds,
+                         acc=task.test_acc)
+        what = "Fast NARS(2), one subset of both relations," if name == "Custom_Hetero" else "SGC(2)"
+        log(f"[13] {name}({', '.join(f'{k}={v!r}' for k, v in kw.items())}): {n} nodes; {what} on the card "
+            f"{seconds:.3f} s, K1 launches {counts['f32']} + fix-ups {fixups['f32']}, logits vs the CPU path "
+            f"{err:.3e} (limit {TOL['f32']:.0e}), test acc {task.test_acc:.4f}")
+    return out
+
+
+def blocked_plain(adj, blocks: int):
+    """The plain version of ``spmm_csr(adj, ·)`` one block of rows at a
+    time (each block's rows with their own split plan, as the whole
+    graph's plan cuts them): returns ``fn(x) -> y``."""
+    from sgl_tpu_torch.kernels.spmm_csr import _make_plan, _split_sum_f32
+
+    n = adj.num_nodes
+    cuts = np.linspace(0, n, blocks + 1).astype(np.int64)
+    parts = []
+    for r0, r1 in zip(cuts[:-1], cuts[1:]):
+        e0, e1 = int(adj.rowptr[r0]), int(adj.rowptr[r1])
+        rowptr = (adj.rowptr[r0:r1 + 1] - e0).contiguous()
+        parts.append((int(r0), int(r1), rowptr, adj.col[e0:e1], adj.val[e0:e1], _make_plan(rowptr)))
+
+    def fn(x):
+        y = torch.empty_like(x)
+        for r0, r1, rowptr, col, val, plan in parts:
+            y[r0:r1] = _split_sum_f32(rowptr, col, val, r1 - r0, plan, x).to(x.dtype)
+        return y
+    return fn
+
+
+def f64_rows(adj, x, rows) -> torch.Tensor:
+    """Rows ``rows`` of ``adj @ x`` summed in float64."""
+    r = torch.as_tensor(rows, device=x.device)
+    beg, end = adj.rowptr.long()[r], adj.rowptr.long()[r + 1]
+    counts = end - beg
+    owner = torch.repeat_interleave(torch.arange(r.shape[0], device=x.device), counts)
+    edge = beg[owner] + torch.arange(owner.shape[0], device=x.device) - (counts.cumsum(0) - counts)[owner]
+    y = torch.zeros((r.shape[0], x.shape[1]), dtype=torch.float64, device=x.device)
+    return y.index_add_(0, owner, x.index_select(0, adj.col.long()[edge]).double() * adj.val.double()[edge, None])
+
+
+def k1_at_shape(adj, x, where: str, plain) -> dict:
+    """K1 on ``adj`` and ``x``: against the plain version (all rows), timed
+    (CUDA events, 20 calls back to back) beside the plain version, its
+    bound and ``torch.sparse.mm``."""
+    from sgl_tpu_torch.kernels import spmm_csr
+
+    y = spmm_csr(adj, x)
+    want = plain(x)
+    on_card(y, f"K1 at {where}")
+    abs_err, rel = rel_err(y, want)
+    check(rel <= TOL["f32"], f"[13] K1 at {where} vs the plain version {rel:.3e}")
+    del want
+    n, d = x.shape
+    ms = time_ms(lambda: spmm_csr(adj, x))
+    plain_ms = time_ms(lambda: plain(x), warmup=1, iters=3)
+    library_ms, note = library_time(adj, x, y)
+    b = csr_bound(n, adj.nnz, d, 4)
+    log(f"[13] K1 at {where} (N {n}, nnz {adj.nnz} with self-loops, D {d}, {describe_plan(adj.plan, d)}): "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse.mm {note}; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}, {b['nbytes'] / 1e9:.4f} GB), {b['bound_ms'] / ms:.4f} of it; vs the plain version "
+        f"max abs {abs_err:.3e}, rel {rel:.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                nbytes=b["nbytes"], max_abs_err=abs_err, max_rel_err=rel, nnz=adj.nnz, n=n, d=d)
+
+
+def flickr_run(dev, root: str) -> dict:
+    """Flickr's files at its published shape through ``Flickr(root)``:
+    SGC(2) on the card, its hops against the CPU path at full size, K1
+    timed at D = 500."""
+    from sgl_tpu_torch.datasets import Flickr
+    from sgl_tpu_torch.kernels import spmm_csr_reference
+    from sgl_tpu_torch.models import SGC
+    from sgl_tpu_torch.tasks import NodeClassification
+
+    s = FLICKR_SHAPE
+    t = time.perf_counter()
+    written = raw_files.write_graphsaint(os.path.join(root, "flickr", "flickr", "raw"), **s, device=dev)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ds = Flickr(root + "/")
+    load_s = time.perf_counter() - t
+    check((ds.num_node, ds.num_features, ds.num_classes, ds.graph.num_edges) ==
+          (s["num_nodes"], s["num_features"], s["num_classes"], s["nnz"]), f"[13] Flickr shape {ds.num_node}")
+    check([len(ds.train_idx), len(ds.val_idx), len(ds.test_idx)] == list(s["split"]), "[13] Flickr role.json")
+    model = SGC(2, ds.num_features, ds.num_classes)
+    task, seconds, counts, fixups, peak = count_launches(lambda: NodeClassification(
+        ds, model, device=dev, verbose=False, **SHAPE_TRAIN))
+    host = SGC(2, ds.num_features, ds.num_classes)
+    host.preprocess(ds.graph, ds.x, device="cpu")
+    on_card(model.processed_feature, "Flickr hops")
+    err = rel_err(model.processed_feature.cpu(), host.processed_feature)[1]
+    check(err <= TOL["f32"], f"[13] Flickr hops card vs CPU {err:.3e}")
+    check(counts["f32"] == 2, f"[13] Flickr: K1 launches {counts}, expected 2")
+    check(0.0 <= task.test_acc <= 1.0, f"[13] Flickr test accuracy {task.test_acc}")
+    log(f"[13] Flickr at its published shape ({written['nnz']} stored nonzeros written in {write_s:.2f} s, "
+        f"Flickr(root) {load_s:.2f} s): {ds.num_node} nodes, {ds.graph.num_edges} edges, {ds.num_features} "
+        f"features, {ds.num_classes} classes, split {len(ds.train_idx)}/{len(ds.val_idx)}/{len(ds.test_idx)}; "
+        f"SGC(2) on the card: K1 launches {counts['f32']} + fix-ups {fixups['f32']}, preprocess "
+        f"{task.preprocess_seconds:.4f} s, median epoch ms {statistics.median(task.epoch_seconds) * 1e3:.3f}, "
+        f"test acc {task.test_acc:.4f}, peak device memory {peak / 2**30:.3f} GiB; hops vs the CPU path at "
+        f"full size {err:.3e} (limit {TOL['f32']:.0e})")
+    adj = model.pre_graph_op._adj_cache[2]
+    x = torch.as_tensor(np.asarray(ds.x), device=dev)
+    times = k1_at_shape(adj, x, "Flickr (D = 500)", lambda v: spmm_csr_reference(adj, v))
+    return dict(times, launches=counts["f32"], fixups=fixups["f32"], write_s=write_s, load_s=load_s,
+                hop_err=err, graph=ds.graph, x=x)
+
+
+def reddit_run(dev, root: str) -> dict:
+    """Reddit's files at its published shape through ``Reddit(root)``:
+    write, parse, SGC(2) and GAMLP on the card, K1 at D = 602."""
+    from sgl_tpu_torch import models
+    from sgl_tpu_torch.datasets import Reddit
+    from sgl_tpu_torch.graph import Graph
+    from sgl_tpu_torch.kernels import spmm_csr
+    from sgl_tpu_torch.tasks import NodeClassification
+
+    s = REDDIT_SHAPE
+    nnz = int(s["nnz"] * REDDIT_EDGE_SHARE) // 2 * 2
+    if nnz != s["nnz"]:
+        log(f"[13] Reddit's edges cut to {nnz} of {s['nnz']} (REDDIT_EDGE_SHARE {REDDIT_EDGE_SHARE})")
+    t = time.perf_counter()
+    written = raw_files.write_reddit(os.path.join(root, "reddit", "reddit", "raw"), **dict(s, nnz=nnz), device=dev)
+    write_s = time.perf_counter() - t
+    parse = {}
+    real = Graph.from_coo
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        g = real(*a, **k)
+        parse["from_coo_s"] = time.perf_counter() - t
+        return g
+
+    Graph.from_coo = staticmethod(timed)
+    try:
+        t = time.perf_counter()
+        ds = Reddit(root + "/")
+        load_s = time.perf_counter() - t
+    finally:
+        Graph.from_coo = staticmethod(real)
+    check((ds.num_node, ds.num_features, ds.num_classes) == (s["num_nodes"], s["num_features"], s["num_classes"]),
+          f"[13] Reddit shape {ds.num_node}, {ds.num_features}, {ds.num_classes}")
+    check(ds.graph.num_edges == written["nnz"] == nnz, f"[13] Reddit stored {ds.graph.num_edges} of {nnz}")
+    check([len(ds.train_idx), len(ds.val_idx), len(ds.test_idx)] == list(s["split"]), "[13] Reddit node_types")
+    log(f"[13] Reddit at its published shape: {ds.num_node} nodes, {ds.num_features} features, {ds.num_classes} "
+        f"classes, stored nonzeros {ds.graph.num_edges} (published {s['nnz']}), split {len(ds.train_idx)}/"
+        f"{len(ds.val_idx)}/{len(ds.test_idx)}; files written in {write_s:.2f} s, Reddit(root) {load_s:.2f} s "
+        f"(Graph.from_coo {parse['from_coo_s']:.2f} s; the rest reading the npz files and writing the "
+        f"processed cache)")
+    runs = {}
+    for name, kw in REDDIT_MODELS.items():
+        model = getattr(models, name)(feat_dim=ds.num_features, output_dim=ds.num_classes, **kw)
+        task, seconds, counts, fixups, peak = count_launches(lambda: NodeClassification(
+            ds, model, device=dev, verbose=False, **SHAPE_TRAIN))
+        hops = model.pre_graph_op.prop_steps
+        on_card(model.processed_feature, f"Reddit {name} features")
+        check(torch.isfinite(model.processed_feature).all().item(), f"[13] Reddit {name}: non-finite features")
+        check(counts["f32"] == hops, f"[13] Reddit {name}: K1 launches {counts}, expected {hops}")
+        check(0.0 <= task.test_acc <= 1.0, f"[13] Reddit {name}: test accuracy {task.test_acc}")
+        epoch_ms = statistics.median(task.epoch_seconds) * 1e3
+        runs[name] = dict(launches=counts["f32"], fixups=fixups["f32"], preprocess_s=task.preprocess_seconds,
+                          epoch_ms=epoch_ms, peak_bytes=peak, test_acc=task.test_acc, seconds=seconds)
+        log(f"[13] Reddit {name} ({SHAPE_TRAIN}) on the card: {seconds:.2f} s, K1 launches {counts['f32']} + "
+            f"fix-ups {fixups['f32']}, preprocess {task.preprocess_seconds:.4f} s, median epoch ms {epoch_ms:.3f}, "
+            f"test acc {task.test_acc:.4f}, peak device memory {peak / 2**30:.3f} GiB")
+        adj = model.pre_graph_op._adj_cache[2]
+        del task, model
+        torch.cuda.empty_cache()
+    x = torch.as_tensor(np.asarray(ds.x), device=dev)
+    y = spmm_csr(adj, x)
+    lengths = torch.diff(adj.rowptr.long())
+    rng = np.random.default_rng(0)
+    rows = np.unique(np.append(rng.choice(ds.num_node, REDDIT_F64_ROWS, replace=False), int(lengths.argmax())))
+    f64_err = rel_err(y[torch.as_tensor(rows, device=dev)], f64_rows(adj, x, rows))[1]
+    check(f64_err <= F64_TOL, f"[13] Reddit first hop vs float64 on {rows.size} rows {f64_err:.3e}")
+    log(f"[13] Reddit first hop on {rows.size} rows (the longest, {int(lengths.max())} nonzeros, among them) "
+        f"against a float64 sum: max rel err {f64_err:.3e} (limit {F64_TOL:.0e})")
+    del y
+    times = k1_at_shape(adj, x, "Reddit (D = 602)", blocked_plain(adj, REDDIT_PLAIN_BLOCKS))
+    return dict(times, runs=runs, launches=sum(r["launches"] for r in runs.values()), write_s=write_s,
+                load_s=load_s, from_coo_s=parse["from_coo_s"], stored_nnz=ds.graph.num_edges, f64_err=f64_err)
+
+
+def backend_check(dev, graph, x) -> dict:
+    """``set_default_backend`` on the card: one hop of ``graph`` under each
+    backend, K1's launches counted; ``"segment"`` launches nothing and
+    gives the same hop.  The default is restored."""
+    from sgl_tpu_torch.kernels import get_default_backend, set_default_backend
+    from sgl_tpu_torch.ops import LaplacianGraphOp
+
+    before = get_default_backend()
+    hops, out = {}, {}
+    try:
+        for name in ("auto", "segment", "pallas"):
+            set_default_backend(name)
+            op = LaplacianGraphOp(1)
+            try:
+                hop, _, counts, _, _ = count_launches(lambda: op.propagate(graph, x, device=dev)[1])
+            except ValueError as exc:  # "pallas" needs a CUDA tensor
+                check(False, f"[13] backend {name}: not on the card ({exc})")
+                continue
+            on_card(hop, f"backend {name} hop")
+            hops[name], out[name] = hop, counts["f32"]
+    finally:
+        set_default_backend(before)
+    check(out.get("segment") == 0, f"[13] backend 'segment': K1 launches {out.get('segment')}, expected 0")
+    check(out.get("auto") == 1 and out.get("pallas", 1) == 1, f"[13] backends auto/pallas: K1 launches {out}")
+    errs = {k: rel_err(hops[k], hops["auto"])[1] for k in hops}
+    check(max(errs.values()) <= TOL["f32"], f"[13] backends disagree with 'auto': {errs}")
+    check(get_default_backend() == before, "[13] the default backend was not restored")
+    log(f"[13] set_default_backend on Flickr's hop: K1 launches {out}; max rel err against 'auto' {errs} "
+        f"(limit {TOL['f32']:.0e}); the default ({before!r}) restored")
+    return dict(launches=out, errs=errs)
+
+
+def example_runs(dev, root: str) -> dict:
+    """The six examples' ``main`` on the card with short runs (sgc_pubmed on
+    Planetoid files at pubmed's shape, the rest on their fallbacks, the
+    network stubbed out), and the papers100M pipeline's ``--data`` on OGB
+    files; each one's device, metric and launches."""
+    import urllib.request
+
+    from sgl_tpu_torch.datasets.planetoid import write_raw_files
+    from sgl_tpu_torch.examples import (
+        gamlp_products,
+        graph_classification,
+        hetero_nars,
+        nafs_link_predict,
+        nafs_node_cluster,
+        papers100m_pipeline,
+        sgc_pubmed,
+    )
+
+    write_raw_files(os.path.join(root, "Planetoid", "pubmed", "raw"), "pubmed", seed=0, **EXAMPLE_PUBMED)
+    write_ogb_raw(os.path.join(root, "papers"), PAPERS_DATA, name="papers100M")
+    empty = os.path.join(root, "empty")
+    epochs = ["--epochs", str(EXAMPLE_EPOCHS)]
+    runs = (
+        ("sgc_pubmed", lambda: sgc_pubmed.main(["--root", root, *epochs]), "test_acc"),
+        ("gamlp_products", lambda: gamlp_products.main(["--root", empty, *epochs]), "test_acc"),
+        ("hetero_nars", lambda: hetero_nars.main(["--root", empty, *epochs]), "test_acc"),
+        ("graph_classification", lambda: graph_classification.main(epochs), "test_acc"),
+        ("nafs_link_predict", lambda: nafs_link_predict.main(["--root", empty]), "test_roc_auc"),
+        ("nafs_node_cluster", lambda: nafs_node_cluster.main(["--root", empty]), "acc"),
+        ("papers100m_pipeline --data", lambda: papers100m_pipeline.main(
+            ["--data", os.path.join(root, "papers"), "--store", os.path.join(root, "store"), *PAPERS_ARGS]),
+         "test_acc"),
+    )
+    asked = []
+    real = urllib.request.urlopen
+    urllib.request.urlopen = offline_urlopen(asked)
+    out = {}
+    try:
+        for name, run, metric in runs:
+            res, seconds, counts, fixups, peak = count_launches(run)
+            key = "acc_f32" if name.startswith("papers") else "f32"
+            device = res["task"]._device  # where the task ran
+            check(device.type == "cuda", f"[13] {name}: ran on {device}, not on the card")
+            value = float(res[metric])
+            check(np.isfinite(value) and 0.0 <= value <= 1.0, f"[13] {name}: {metric} {value}")
+            check(counts[key] >= 1, f"[13] {name}: launches {counts}")
+            out[name] = dict(metric=metric, value=value, launches=counts[key], fixups=fixups[key], seconds=seconds,
+                             kernel=key)
+            log(f"[13] example {name} on {device}: {metric} {value:.4f}, {seconds:.2f} s, launches of "
+                f"{'K3' if key == 'acc_f32' else 'K1'} {counts[key]} + fix-ups {fixups[key]}")
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        urllib.request.urlopen = real
+    log(f"[13] the examples' fallbacks asked for {len(set(asked))} URLs, each refused by the stub: "
+        f"{sorted(set(asked))[:4]}")
+    return out
+
+
+def loaders_phase(dev) -> dict:
+    """The loaders and the examples on the card (section 13 of the module
+    docstring); returns each part's numbers."""
+    with tempfile.TemporaryDirectory() as root:
+        small = loader_runs(dev, os.path.join(root, "small"))
+        flickr = flickr_run(dev, os.path.join(root, "flickr"))
+        backend = backend_check(dev, flickr.pop("graph"), flickr.pop("x"))
+        torch.cuda.empty_cache()
+        examples = example_runs(dev, os.path.join(root, "examples"))
+        reddit = reddit_run(dev, os.path.join(root, "reddit"))
+    torch.cuda.empty_cache()
+    launches = sum(r["launches"] for r in small.values()) + flickr["launches"] + reddit["launches"] + sum(
+        r["launches"] for r in examples.values() if r["kernel"] == "f32")
+    return dict(small=small, flickr=flickr, reddit=reddit, backend=backend, examples=examples, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs one GPU", file=sys.stderr)
@@ -2765,8 +3179,10 @@ def main() -> int:
     ooc = phase("10", ooc_phase, dev, products_graph, products_refs)
     nas = phase("11", nas_phase, dev)
     dist = phase("12", dist_phase, dev, products_graph)
-    print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products,
-                                  dev_launches, dev_results, zoo_launches, label, hetero, ooc, nas, dist)))
+    del products_graph, products_refs
+    loaders = phase("13", loaders_phase, dev)
+    print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
+                                  zoo_launches, label, hetero, ooc, nas, dist, loaders)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
@@ -2774,7 +3190,7 @@ def main() -> int:
 
 
 def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
-                 zoo_launches, label, hetero, ooc, nas, dist) -> dict:
+                 zoo_launches, label, hetero, ooc, nas, dist, loaders) -> dict:
     kernels = []
     for key in ("f32", "bf16"):
         r = bench[key]
@@ -2798,6 +3214,12 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
               gradient=label["gradient"], nafs_product=label["multi"])
     # phase 11, NAS (the search and successive halving), apart from the main path
     k1.update(nas_launches=nas["launches"], nas_fixup_launches=nas["fixup_launches"])
+    # phase 13, the loaders and the examples, apart from the main path: their
+    # launches, and K1 at Reddit's and Flickr's shapes with its own times
+    k1.update(loader_launches=loaders["launches"],
+              shapes={name: {k: loaders[name][k] for k in SHAPE_KEYS} for name in ("reddit", "flickr")})
+    k1["max_abs_err"] = max(k1["max_abs_err"], *(loaders[n]["max_abs_err"] for n in ("reddit", "flickr")))
+    k1["max_rel_err"] = max(k1["max_rel_err"], *(loaders[n]["max_rel_err"] for n in ("reddit", "flickr")))
     # phase 9, the NARS path and graph classification, apart from the main
     # path: their launches, and K1/K2 at the NARS and graph-level batches
     for key, k in zip(("f32", "bf16"), kernels[:2]):

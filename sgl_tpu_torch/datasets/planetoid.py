@@ -1,11 +1,14 @@
-"""Planetoid citation datasets (cora, citeseer, pubmed) — counterpart of
-``sgl_tpu/datasets/planetoid.py``.
+"""Planetoid citation datasets (cora, citeseer, pubmed) and NELL —
+counterpart of ``sgl_tpu/datasets/planetoid.py``.
 
 Parses the kimiyoung/planetoid pickle format: ``ind.<name>.{x,tx,allx,y,ty,
-ally,graph,test.index}`` under ``<root>/Planetoid/<name>/raw/``.  Nothing is
-downloaded: with a file missing the loader raises and names it.  Features
-are row-normalized; the graph is made undirected, without self loops or
-repeated edges.
+ally,graph,test.index}`` under ``<root>/Planetoid/<name>/raw/`` (NELL's
+under ``<root>/Nell/<name>/raw/``).  A missing raw file is fetched from
+the kimiyoung/planetoid repository (NELL's tarball from its authors' page)
+and unpacked; offline the loader raises and names it.  Features are
+row-normalized and
+made dense (NELL at its real size, 65,755 × 61,278, is 16 GB of f32); the
+graph is made undirected, without self loops or repeated edges.
 
 :func:`write_raw_files` writes files of that format from a seed, at any
 size (pubmed's by default), for runs without the real data.
@@ -43,6 +46,11 @@ class Planetoid(NodeDataset):
     @property
     def raw_file_paths(self):
         return [osp.join(self.raw_dir, f"ind.{self.name}.{n}") for n in self.RAW_NAMES]
+
+    @property
+    def raw_urls(self):
+        base = "https://github.com/kimiyoung/planetoid/raw/master/data"
+        return {f"ind.{self.name}.{n}": f"{base}/ind.{self.name}.{n}" for n in self.RAW_NAMES}
 
     def _process(self) -> Graph:
         x, tx, allx, y, ty, ally = [pkl_read_file(p) for p in self.raw_file_paths[:6]]
@@ -87,6 +95,46 @@ class Planetoid(NodeDataset):
             self.train_idx, self.val_idx, self.test_idx = random_split(self.num_node)
         else:
             raise ValueError("Please input valid split pattern!")
+
+
+class Nell(Planetoid):
+    """NELL in the same pickle format (``ind.nell.0.001.*`` and the other
+    label rates).  ``split="official"`` trains on the first ``c`` nodes
+    (one a class), validates on the next 500 and tests on the last 1,000;
+    any other ``split`` is :func:`random_split`'s."""
+
+    def __init__(self, name: str = "nell.0.001", root: str = "./data/", split: str = "official"):
+        self._split_mode = split
+        NodeDataset.__init__(self, name=name, root=osp.join(root, "Nell"))
+
+    @property
+    def raw_urls(self):
+        return {"nell_data.tar.gz": "http://www.cs.cmu.edu/~zhiliny/data/nell_data.tar.gz"}
+
+    def _post_download(self) -> None:
+        """Unpack the tarball and move this variant's files into ``raw/``."""
+        import shutil
+        import tarfile
+
+        tar_path = osp.join(self.raw_dir, "nell_data.tar.gz")
+        with tarfile.open(tar_path) as tf:
+            tf.extractall(self.raw_dir, filter="data")
+        os.unlink(tar_path)
+        extracted = osp.join(self.raw_dir, "nell_data")
+        for root_dir, _, files in os.walk(extracted, topdown=False):
+            for f in files:
+                if self.name in f:
+                    shutil.move(osp.join(root_dir, f), self.raw_dir)
+        shutil.rmtree(extracted, ignore_errors=True)
+
+    def _split(self) -> None:
+        if self._split_mode == "official":
+            c = self.num_classes
+            self.train_idx = np.arange(c)
+            self.val_idx = np.arange(c, c + 500)
+            self.test_idx = np.arange(self.num_node - 1000, self.num_node)
+        else:
+            self.train_idx, self.val_idx, self.test_idx = random_split(self.num_node)
 
 
 def write_raw_files(

@@ -7,7 +7,9 @@ Each rank joins the process group (``--init`` is a ``file://`` path or
 ``tcp://localhost:<port>``; collectives time out after 60 s), builds the
 ``(data, graph)`` mesh, runs the checks the spec lists and writes
 ``rank<r>.json`` (numbers) and ``rank<r>.npz`` (arrays) under ``--out``,
-then prints ``DIST_WORKER_OK rank <r>``.  :func:`launch` starts every rank
+then prints ``DIST_WORKER_OK rank <r>``.  Every rank runs on the GPU
+(cuda:0 for all of them) unless ``--device cpu`` asks for the CPU, as the
+port's other entry points do.  :func:`launch` starts every rank
 as a process of its own, kills them all when one fails or the run outlasts
 its limit, and returns each rank's results; it raises unless every rank
 exited 0 with its OK line.  :func:`run_here` runs a world of one in the
@@ -46,6 +48,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from sgl_tpu_torch.device import resolve_device
 
 OK = "DIST_WORKER_OK"
 
@@ -344,7 +348,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world-size", type=int, required=True)
     ap.add_argument("--mesh", required=True, help="data,graph")
-    ap.add_argument("--device", default="cpu", help="cpu, or cuda (every rank on cuda:0)")
+    ap.add_argument("--device", default=None, help="default: the GPU (every rank on cuda:0); or cpu")
     ap.add_argument("--backend", default=None)
     ap.add_argument("--spec", required=True)
     ap.add_argument("--out", required=True)
@@ -356,7 +360,7 @@ def main(argv=None) -> int:
 
     with open(args.spec) as f:
         spec = json.load(f)
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     t = time.perf_counter()
     init_distributed(args.init, args.world_size, args.rank, backend=args.backend, device_type=device.type)
     seconds["process_group"] = time.perf_counter() - t
@@ -371,7 +375,7 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_here(mesh_shape, spec: dict, out_dir: str, device: str = "cpu",
+def run_here(mesh_shape, spec: dict, out_dir: str, device: Optional[str] = None,
              backend: Optional[str] = None) -> List[dict]:
     """One rank of :func:`main` in this process, for a world of one: the
     results :func:`launch` returns, with no process to start.  The process
@@ -385,7 +389,7 @@ def run_here(mesh_shape, spec: dict, out_dir: str, device: str = "cpu",
     rendezvous = os.path.join(out_dir, "rendezvous")
     if os.path.exists(rendezvous):
         os.remove(rendezvous)
-    device = torch.device(device)
+    device = resolve_device(device)
     t = time.perf_counter()
     init_distributed(f"file://{rendezvous}", 1, 0, backend=backend, device_type=device.type)
     try:
@@ -397,7 +401,7 @@ def run_here(mesh_shape, spec: dict, out_dir: str, device: str = "cpu",
     return [numbers]
 
 
-def launch(world_size: int, mesh_shape, spec: dict, out_dir: str, device: str = "cpu",
+def launch(world_size: int, mesh_shape, spec: dict, out_dir: str, device: Optional[str] = None,
            backend: Optional[str] = None, limit_s: float = 300.0, threads: Optional[int] = None) -> List[dict]:
     """Run ``world_size`` ranks of :func:`main` on ``spec`` (written to
     ``out_dir``) over a ``file://`` rendezvous in ``out_dir``; returns each
@@ -405,6 +409,7 @@ def launch(world_size: int, mesh_shape, spec: dict, out_dir: str, device: str = 
     rank's output, when a rank fails, lacks its OK line or the ranks outlast
     ``limit_s`` (then all are killed).  ``threads`` caps each rank's CPU
     threads."""
+    device = str(resolve_device(device))
     os.makedirs(out_dir, exist_ok=True)
     spec_path = os.path.join(out_dir, "spec.json")
     with open(spec_path, "w") as f:

@@ -3,9 +3,9 @@
 OpenBox's SMBO when it is installed, else the built-in evolutionary Pareto
 search, over the 7-integer architecture space; every trial's propagation
 runs on the card through the cross-trial cache.  Cora from Planetoid raw
-files under ``./data/`` when they are there, else a planted-partition
-graph.  ``TrainConfig`` flags (``--lr``, ``--epochs``, ...) override the
-defaults.
+files under ``./data/`` (fetched when they are not there), else a
+planted-partition graph.  ``TrainConfig`` flags (``--lr``, ``--epochs``,
+...) override the defaults.
 
     python -m sgl_tpu_torch.examples.nas [--max-runs 30] [--device cpu]
 """

@@ -6,7 +6,9 @@ in host RAM and slicing batches to the GPU a step at a time.  Here the card
 does the SpMM work, end to end:
 
 1. **Ingest**: a synthetic OGB-shaped homophilous power-law graph
-   (``SyntheticPowerLaw``; papers100M's ~14 edges a node by default).
+   (``SyntheticPowerLaw``; papers100M's ~14 edges a node by default), or
+   with ``--data ROOT`` the real ogbn-papers100M raw dump under ``ROOT``
+   (``Ogbn("papers100M", root=ROOT)``, its standard OGB layout).
 2. **Precompute out of core**: the 2-D src-block layout
    (``GraphOp.propagate_out_of_core(layout="2d")``): features, edges and
    every hop stay on the host; a hop copies one feature volume to the card
@@ -20,11 +22,8 @@ does the SpMM work, end to end:
    never enters the card whole.
 
     python -m sgl_tpu_torch.examples.papers100m_pipeline [--bf16] [--store DIR]
+    python -m sgl_tpu_torch.examples.papers100m_pipeline --data /path/to/data
     python -m sgl_tpu_torch.examples.papers100m_pipeline --toy   # 2,000 nodes, on the CPU
-
-The JAX example's ``--data`` (the real ogbn-papers100M raw dump) is not
-ported yet; ``sgl_tpu_torch.datasets.Ogbn("papers100M", root)`` reads those
-files.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ import time
 import numpy as np
 import torch
 
-from sgl_tpu_torch.datasets import SyntheticPowerLaw
+from sgl_tpu_torch.datasets import Ogbn, SyntheticPowerLaw
 from sgl_tpu_torch.device import resolve_device
 from sgl_tpu_torch.models import GAMLP
 from sgl_tpu_torch.tasks import NodeClassification
@@ -49,7 +48,7 @@ def _src_blocks(s: str):
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--nodes", type=int, default=200_000, help="synthetic graph size")
+    ap.add_argument("--nodes", type=int, default=200_000, help="synthetic graph size (ignored with --data)")
     ap.add_argument("--avg-deg", type=int, default=14, help="papers100M's ~14 edges a node")
     ap.add_argument("--d", type=int, default=128, help="feature width")
     ap.add_argument("--classes", type=int, default=32)
@@ -62,6 +61,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--part-edges", type=int, default=6 << 20, help="edges per out-of-core part")
     ap.add_argument("--epochs", type=int, default=4)
     ap.add_argument("--batch", type=int, default=50_000)
+    ap.add_argument("--data", default=None, help="root holding a real ogbn-papers100M raw dump")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 features end to end: half the host-to-card volume and half the store")
     ap.add_argument("--toy", action="store_true", help="2,000 nodes, small parts, on the CPU")
@@ -76,9 +76,11 @@ def main(argv=None, device=None) -> dict:
     args = parse_args(argv)
     device = resolve_device("cpu" if device is None and args.toy else device)
     t0 = time.perf_counter()
-    n = 2_000 if args.toy else args.nodes
-    ds = SyntheticPowerLaw(num_nodes=n, avg_degree=args.avg_deg, feat_dim=args.d,
-                           num_classes=args.classes, seed=0)
+    if args.data:
+        ds = Ogbn("papers100M", root=args.data)
+    else:
+        ds = SyntheticPowerLaw(num_nodes=2_000 if args.toy else args.nodes, avg_degree=args.avg_deg,
+                               feat_dim=args.d, num_classes=args.classes, seed=0)
     n, d = ds.num_node, ds.num_features
     ingest = time.perf_counter() - t0
     print(f"[ingest] {n} nodes, {ds.graph.num_edges} edges, d={d} ({ingest:.4f}s)")

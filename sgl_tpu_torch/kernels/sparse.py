@@ -1,10 +1,13 @@
 """Sparse adjacency × dense features: the SpMM every propagation hop runs.
 
 Counterpart of ``sgl_tpu/kernels/sparse.py``.  Message direction is
-``y[dst] += w * x[src]``.  Dispatch follows the tensor, with no backend
-switch: a CUDA tensor goes to the hand-written CSR kernel
-(``spmm_csr.py``), a CPU tensor to the plain gather + ``index_add_``
-version.
+``y[dst] += w * x[src]``.  By default dispatch follows the tensor: a CUDA
+tensor goes to the hand-written CSR kernel (``spmm_csr.py``), a CPU tensor
+to the plain gather + ``index_add_`` version.  :func:`set_default_backend`
+(or ``spmm``'s ``backend=``) overrides that: ``"segment"`` takes the plain
+version on any device, ``"pallas"`` the CSR kernel, which needs a CUDA
+tensor (the name is ``sgl_tpu``'s, whose kernel of that name is the TPU
+one).
 
 :func:`spmm` is differentiable in ``x``: when ``x`` needs a gradient the
 product goes through :class:`_Spmm`, whose backward is ``dx = Aᵀ g`` on the
@@ -17,8 +20,28 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
+from typing import Optional
 
 import torch
+
+BACKENDS = ("auto", "segment", "pallas")
+_DEFAULT_BACKEND = "auto"
+
+
+def set_default_backend(name: str) -> None:
+    """Select the default SpMM backend: ``"auto"`` (the CSR kernel on a CUDA
+    tensor, the plain version on a CPU one), ``"segment"`` (the plain
+    version on any device) or ``"pallas"`` (the CSR kernel; a CPU tensor
+    raises)."""
+    global _DEFAULT_BACKEND
+    if name not in BACKENDS:
+        raise ValueError(f"unknown spmm backend {name!r}")
+    _DEFAULT_BACKEND = name
+
+
+def get_default_backend() -> str:
+    """The backend :func:`spmm` takes when called without ``backend=``."""
+    return _DEFAULT_BACKEND
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,25 +97,45 @@ def add_rows_(y: torch.Tensor, rows: torch.Tensor, values: torch.Tensor) -> torc
     return y
 
 
-def spmm(adj, x: torch.Tensor) -> torch.Tensor:
+def spmm(adj, x: torch.Tensor, backend: Optional[str] = None) -> torch.Tensor:
     """Sparse-matrix × dense-features product.
 
     ``adj`` is a :class:`SparseAdj` or a
     :class:`~sgl_tpu_torch.kernels.spmm_csr.CsrAdj` (build once per graph
     with ``prepare_csr``, or :func:`ensure_device_layout`, and reuse it
-    across hops).  On a CUDA tensor the product runs on the CSR kernel,
-    building the CSR layout first when given a :class:`SparseAdj`; on a CPU
-    tensor it runs the plain version.  When ``x`` needs a gradient the same
-    product runs inside :class:`_Spmm`; otherwise nothing is recorded and
-    the launches and bits are those of the plain call.
+    across hops).  ``backend`` (default: :func:`set_default_backend`'s)
+    picks the route.  ``"auto"``: on a CUDA tensor the CSR kernel, building
+    the CSR layout first when given a :class:`SparseAdj`; on a CPU tensor
+    the plain version.  ``"segment"``: :func:`spmm_segment` on any device
+    (a ``CsrAdj`` is read back as its edges).  ``"pallas"``: the CSR
+    kernel, which raises on a CPU tensor.  When ``x`` needs a gradient the
+    same product runs inside :class:`_Spmm`; otherwise nothing is recorded
+    and the launches and bits are those of the plain call.
     """
     from sgl_tpu_torch.kernels.spmm_csr import prepare_csr
 
-    if isinstance(adj, SparseAdj) and x.device.type != "cpu":
+    backend = backend or _DEFAULT_BACKEND
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown spmm backend {backend!r}")
+    if backend == "segment":
+        adj = csr_edges(adj)
+    elif backend == "pallas" and x.device.type == "cpu":
+        raise ValueError("the 'pallas' spmm backend is the CUDA kernel; x lies on the CPU")
+    elif isinstance(adj, SparseAdj) and x.device.type != "cpu":
         adj = prepare_csr(adj)
     if x.requires_grad and torch.is_grad_enabled():
         return _Spmm.apply(adj, x)
     return _product(adj, x)
+
+
+def csr_edges(adj) -> SparseAdj:
+    """A ``CsrAdj`` as the :class:`SparseAdj` of its edges, in row order
+    (sorted by dst); a :class:`SparseAdj` unchanged."""
+    if isinstance(adj, SparseAdj):
+        return adj
+    counts = torch.diff(adj.rowptr.long())
+    dst = torch.repeat_interleave(torch.arange(adj.num_nodes, device=adj.col.device, dtype=torch.int32), counts)
+    return SparseAdj(adj.col, dst, adj.val, adj.num_nodes, sorted_by_dst=True)
 
 
 def _product(adj, x: torch.Tensor) -> torch.Tensor:

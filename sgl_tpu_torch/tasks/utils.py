@@ -38,6 +38,9 @@ def bce_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def weighted_cross_entropy(logits, labels, w):
+    # a negative label counts from the last class, as optax's integer-label
+    # loss reads it (LINKX and papers100M mark unlabeled nodes -1)
+    labels = torch.where(labels < 0, labels + logits.shape[1], labels)
     ce = F.cross_entropy(logits, labels, reduction="none")
     return (ce * w).sum() / w.sum().clamp(min=1.0)
 

@@ -105,9 +105,15 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
             for k in ("f32", "bf16")}
     dist = dict(work=work, ring_launches={"f32": {"gloo (1, 2) GAMLP f32": [[6, 3], [6, 3]]},
                                           "bf16": {"gloo (1, 2) SGC bf16": [[6, 3], [6, 3]]}})
+    shape = dict(probe, n=10, nnz=40, d=602, launches=5, max_abs_err=0.0, max_rel_err=0.0, write_s=9.0)
+    loaders = dict(launches=77, reddit=dict(shape), flickr=dict(shape, d=500, max_rel_err=0.125))
     line = kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo, label, hetero, ooc, nas, dist)
+                        dev_launches, dev_results, zoo, label, hetero, ooc, nas, dist, loaders)
     kernels = line["kernels"]
+    # phase 13's on K1 alone: the loaders' launches, K1 at Reddit's and Flickr's shapes
+    assert kernels[0]["loader_launches"] == 77 and "loader_launches" not in kernels[1]
+    assert kernels[0]["shapes"]["reddit"]["d"] == 602 and kernels[0]["shapes"]["flickr"]["d"] == 500
+    assert "write_s" not in kernels[0]["shapes"]["reddit"] and kernels[0]["max_rel_err"] == 0.125
     # phase 12's on K3 and K4: each run's ring launches a rank, and the bucket work
     assert kernels[2]["ring_launches"] == {"gloo (1, 2) GAMLP f32": [[6, 3], [6, 3]]}
     assert kernels[3]["ring_work"]["hop_ms"] == 2.0 and "ring_work" not in kernels[0]
@@ -124,7 +130,8 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
     # each out-of-core form's kernel-vs-twin error counts toward its row's
     ooc["products"]["2d bf16"]["max_rel_err"] = 0.25
     assert kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo, label, hetero, ooc, nas, dist)["kernels"][3]["max_rel_err"] == 0.25
+                        dev_launches, dev_results, zoo, label, hetero, ooc, nas, dist,
+                        loaders)["kernels"][3]["max_rel_err"] == 0.25
     # phase 9's on K1 and K2, with their times at the NARS and graph-level batches
     assert [(k["hetero_launches"], k["hetero_fixup_launches"]) for k in kernels[:2]] == [(9, 0), (3, 0)]
     assert all(k["nars_batch"]["ms"] == 1.0 and k["graph_batch"]["bound_by"] == "bytes" for k in kernels[:2])
@@ -350,3 +357,88 @@ def test_dist_runs_cover_every_backend_and_ring_size():
     rings = {tuple(r.get("mesh", m))[1] for _, _, m, _, runs in DIST_RUNS for r in runs}
     assert rings == {1, 2, 4}
     assert all(DIST_GAMLP in runs for *_, runs in DIST_RUNS)
+
+
+def _counting(fn, counts, fixups, key_of):
+    """``fn`` counting a launch (and a fix-up for a plan with long rows)
+    where the card's kernel would launch: the CPU launches nothing."""
+    from sgl_tpu_torch.kernels.spmm_csr import _plan
+
+    def wrapped(adj, x, *rest):
+        key = key_of(x)
+        counts[key] += 1
+        if _plan(adj).num_long:
+            fixups[key] += 1
+        return fn(adj, x, *rest)
+    return wrapped
+
+
+def test_loaders_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 13 on the CPU at small shapes, the card's control flow: every
+    check holds but those that the work ran on the card.  One intra-op
+    thread: torch's spinning thread pools, eight in each of the tier-1
+    run's six workers, slow every worker many times over when they meet."""
+    import chip_smoke as cs
+    from sgl_tpu_torch.examples import (
+        gamlp_products,
+        graph_classification,
+        hetero_nars,
+        nafs_link_predict,
+        nafs_node_cluster,
+        papers100m_pipeline,
+        sgc_pubmed,
+    )
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.kernels import prepare_csr, spmm_ooc
+    from sgl_tpu_torch.kernels.spmm_csr import spmm_csr
+    from sgl_tpu_torch.tasks import node_clustering
+
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    failures = []
+    monkeypatch.setattr(cs, "check", lambda ok, msg: ok or failures.append(str(msg)))
+    monkeypatch.setattr(cs, "time_ms", lambda fn, warmup=3, iters=20, device=None: (fn(), 1.0)[1])
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    for mod in (sgc_pubmed, gamlp_products, hetero_nars, graph_classification, nafs_link_predict,
+                nafs_node_cluster, papers100m_pipeline):
+        monkeypatch.setattr(mod, "resolve_device", lambda device=None: cpu)
+    counts, fixups = spmm_csr.launches, spmm_csr.fixup_launches
+    # the module, which the package's function of the same name hides
+    monkeypatch.setattr(sys.modules["sgl_tpu_torch.kernels.spmm_csr"], "spmm_csr", _counting(
+        spmm_csr, counts, fixups, lambda x: "bf16" if x.dtype == torch.bfloat16 else "f32"))
+    # NAFS as on the card: a CSR layout, whose products reach spmm_csr
+    monkeypatch.setattr(node_clustering, "_layout", lambda graph, r, device: prepare_csr(
+        symmetric_normalized_weights(graph, r=r, device=device)))
+    monkeypatch.setattr(spmm_ooc, "spmm_csr_acc", _counting(
+        spmm_ooc.spmm_csr_acc, counts, fixups, lambda x: "acc_bf16" if x.dtype == torch.bfloat16 else "acc_f32"))
+    monkeypatch.setattr(cs, "LOADER_SMALL", dict(num_nodes=120, num_features=8, num_classes=3, avg_degree=4))
+    monkeypatch.setattr(cs, "REDDIT_SHAPE", dict(num_nodes=3_000, nnz=40_000, num_features=602, num_classes=41,
+                                                 split=(1_976, 307, 717)))
+    monkeypatch.setattr(cs, "FLICKR_SHAPE", dict(num_nodes=2_000, nnz=16_000, num_features=500, num_classes=7,
+                                                 split=(1_000, 500, 500)))
+    monkeypatch.setattr(cs, "REDDIT_F64_ROWS", 64)
+    monkeypatch.setattr(cs, "REDDIT_PLAIN_BLOCKS", 4)
+    monkeypatch.setattr(cs, "EXAMPLE_EPOCHS", 2)
+    monkeypatch.setattr(cs, "EXAMPLE_PUBMED", dict(num_nodes=1_600, num_features=60, num_edges=3_000))
+    monkeypatch.setattr(cs, "PAPERS_DATA", dict(NAS_OGB, num_nodes=2_000, num_edges=9_000, feat_dim=16,
+                                                num_classes=6, split=(1_000, 400, 600)))
+    monkeypatch.setattr(cs, "PAPERS_ARGS", ["--epochs", "1", "--batch", "500", "--part-edges", "4096",
+                                            "--src-blocks", "2"])
+    try:
+        out = cs.loaders_phase(cpu)
+    finally:
+        torch.set_num_threads(threads)
+    assert failures and all("not on the card" in f for f in failures), [f for f in failures
+                                                                        if "not on the card" not in f]
+    # the smoke's every step ran: 17 loaders, both shapes, 3 backends, 7 examples
+    assert sorted(out["small"]) == sorted(cs.raw_files.LOADERS)
+    assert out["reddit"]["stored_nnz"] == 40_000 and out["reddit"]["runs"]["GAMLP"]["launches"] == 3
+    assert out["reddit"]["launches"] == 5 and all(k in out[n] for n in ("reddit", "flickr") for k in cs.SHAPE_KEYS)
+    assert out["flickr"]["launches"] == 2 and out["flickr"]["bound_by"] in ("bytes", "operations")
+    assert out["backend"]["launches"] == {"auto": 1, "segment": 0}
+    assert len(out["examples"]) == 7 and out["examples"]["papers100m_pipeline --data"]["kernel"] == "acc_f32"
+    assert out["launches"] >= 2 * 17
+    assert "refused by the stub" in capsys.readouterr().out

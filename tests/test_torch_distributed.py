@@ -211,7 +211,7 @@ def test_ring_across_four_ranks_matches_sgl_tpu(tmp_path):
     np.savez(tmp_path / "in.npz", src=np.asarray(jadj.src), dst=np.asarray(jadj.dst), w=np.asarray(jadj.w),
              num_nodes=g.num_nodes, x=x, prop_steps=2, ids=ids)
     ranks = dist_worker.launch(4, (1, 4), {"checks": ["ring"], "inputs": str(tmp_path / "in.npz")},
-                               str(tmp_path / "out"), threads=2, limit_s=120)
+                               str(tmp_path / "out"), device="cpu", threads=2, limit_s=120)
     jmesh = j_make_mesh((1, 4), devices=jax.devices()[:4])
     want = np.asarray(j_k_hop_dist(jmesh, j_partition_adj(jadj, 4), x, prop_steps=2))
     for r in ranks:
@@ -293,7 +293,7 @@ def test_mesh_2x2_step_task_and_nas(tmp_path, monkeypatch):
                 "arch": [2, 1, 0, 1, 0, 0, 0], "hidden": 16,
                 "train": dict(lr=0.1, weight_decay=5e-5, epochs=8)},
     }
-    ranks = dist_worker.launch(4, (2, 2), spec, str(tmp_path / "out"), threads=2, limit_s=150)
+    ranks = dist_worker.launch(4, (2, 2), spec, str(tmp_path / "out"), device="cpu", threads=2, limit_s=150)
     for r in ranks:
         # the data-parallel step from sgl_tpu's parameters and dropout bits
         # equals sgl_tpu's single-device step

@@ -1,7 +1,7 @@
 """The port stands alone: ``sgl_tpu_torch`` and ``chip_smoke.py`` import
 nothing of JAX, Flax, Optax, ``sgl_tpu``, the JAX harnesses in ``dev/``,
-scikit-learn, matplotlib or ml_dtypes (the card's machine has none of the
-three), and importing the package needs no CUDA."""
+scikit-learn, matplotlib, ml_dtypes or networkx (the card's machine has
+none of the four), and importing the package needs no CUDA."""
 
 import pathlib
 import re
@@ -36,17 +36,22 @@ MODULES = [
     "sgl_tpu_torch.parallel.mesh", "sgl_tpu_torch.parallel.spmm_dist", "sgl_tpu_torch.parallel.train_dist",
     "sgl_tpu_torch.tasks.node_classification_dist", "sgl_tpu_torch.search.auto_search_dist",
     "sgl_tpu_torch.dev.dist_worker", "sgl_tpu_torch.examples.nodeclass_dist", "sgl_tpu_torch.examples.nas_dist",
+    "sgl_tpu_torch.datasets.npz_datasets", "sgl_tpu_torch.datasets.web_datasets", "sgl_tpu_torch.datasets.custom",
+    "sgl_tpu_torch.datasets.raw_files", "sgl_tpu_torch.examples.sgc_pubmed", "sgl_tpu_torch.examples.gamlp_products",
+    "sgl_tpu_torch.examples.hetero_nars", "sgl_tpu_torch.examples.graph_classification",
+    "sgl_tpu_torch.examples.nafs_link_predict", "sgl_tpu_torch.examples.nafs_node_cluster",
+    "sgl_tpu_torch.examples.reproduce_accuracy",
     "chip_smoke",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES
 ]
 # the top-level packages the port never imports (openbox: only inside the
 # search functions that use it)
-NEVER = ("jax", "flax", "optax", "sgl_tpu", "sklearn", "matplotlib", "ml_dtypes", "openbox")
+NEVER = ("jax", "flax", "optax", "sgl_tpu", "sklearn", "matplotlib", "ml_dtypes", "networkx", "openbox")
 # word-bounded: ``sgl_tpu_torch`` is not ``sgl_tpu``; ``dev`` and ``exp_*``
 # are the JAX harnesses, which the port's ``sgl_tpu_torch.dev`` replaces
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|optax|sgl_tpu|sklearn|matplotlib|ml_dtypes|dev|exp_\w+)\b", re.M
+    r"^\s*(?:import|from)\s+(?:jax|flax|optax|sgl_tpu|sklearn|matplotlib|ml_dtypes|networkx|dev|exp_\w+)\b", re.M
 )
 SOURCES = sorted((ROOT / "sgl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -87,6 +92,7 @@ def test_forbidden_pattern_is_word_bounded():
     assert FORBIDDEN.search("    import matplotlib.pyplot as plt")
     assert not FORBIDDEN.search("import sklearn_like")
     assert FORBIDDEN.search("import ml_dtypes")
+    assert FORBIDDEN.search("        import networkx as nx")
     assert not FORBIDDEN.search("        from openbox import Optimizer")  # optional, inside a function
 
 

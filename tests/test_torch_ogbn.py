@@ -291,7 +291,7 @@ def test_offline_download_names_the_file(tmp_path, monkeypatch):
 
 
 def test_no_known_source_names_the_missing_files(tmp_path):
-    from sgl_tpu_torch.datasets import Planetoid
+    from sgl_tpu_torch.datasets import Custom_Homo
 
-    with pytest.raises(IOError, match=r"no download source.*ind\.cora\.x"):
-        Planetoid("cora", root=str(tmp_path) + "/")
+    with pytest.raises(IOError, match=r"no download source.*adj_matrix\.npz"):
+        Custom_Homo("mine", root=str(tmp_path) + "/")

@@ -2,12 +2,10 @@
 against the port (``sgl_tpu_torch``).
 
 Each test of that file has its counterpart here under the same name, with
-the same names asserted in the port's modules, minus two lists:
-
-* ``BY_DESIGN``: names the port does not have because they are JAX's or
-  the TPU's; each is checked absent, beside the port's counterpart;
-* ``STILL_TO_PORT``: names of a later slice, each an ``xfail(strict=True)``
-  case, so the slice that ports one must flip its mark.
+the same names asserted in the port's modules, minus ``BY_DESIGN``: names
+the port does not have because they are JAX's or the TPU's; each is checked
+absent, beside the port's counterpart.  Every script of ``examples/`` has
+its module in ``sgl_tpu_torch/examples``.
 
 The distributed runtime's TPU devices, dropped by design, are checked absent
 from the port's signatures too.
@@ -34,14 +32,6 @@ BY_DESIGN = {
     ("sgl_tpu.utils", "xla_trace"): ("sgl_tpu_torch.utils", "torch_trace", "XLA's profiler"),
 }
 
-# names a later slice ports (ROADMAP.md queue 1): each must fail until then
-STILL_TO_PORT = [
-    ("sgl_tpu_torch.kernels", "set_default_backend"),
-    *(("sgl_tpu_torch.datasets", name) for name in (
-        "Nell", "Reddit", "Flickr", "AmazonProduct", "Amazon", "Coauthor", "Actor", "WebKB", "Airports",
-        "Twitch", "Facebook", "Github", "Wikics", "LINKXDataset", "KarateClub", "Custom_Homo", "Custom_Hetero",
-    )),
-]
 # examples/ scripts -> the port's example module
 EXAMPLES = {
     "test_nas.py": "nas.py",
@@ -49,17 +39,22 @@ EXAMPLES = {
     "test_nodeclass_dist.py": "nodeclass_dist.py",
     "products_scale_demo.py": "products_scale_demo.py",
     "papers100m_pipeline.py": "papers100m_pipeline.py",
+    "sgc_pubmed.py": "sgc_pubmed.py",
+    "gamlp_products.py": "gamlp_products.py",
+    "nafs_link_predict.py": "nafs_link_predict.py",
+    "nafs_node_cluster.py": "nafs_node_cluster.py",
+    "hetero_nars.py": "hetero_nars.py",
+    "graph_classification.py": "graph_classification.py",
+    "reproduce_accuracy.py": "reproduce_accuracy.py",
 }
-EXAMPLES_TO_PORT = ["sgc_pubmed.py", "gamlp_products.py", "nafs_link_predict.py", "nafs_node_cluster.py"]
 
-_PENDING = {(m, n) for m, n in STILL_TO_PORT}
 _EXCEPTED = {(m.replace("sgl_tpu", "sgl_tpu_torch", 1), n) for m, n in BY_DESIGN}
 
 
 def _has(module: str, *names: str):
-    """``names`` in the port's ``module``, less the by-design and pending ones."""
+    """``names`` in the port's ``module``, less the by-design ones."""
     mod = importlib.import_module(module)
-    names = [n for n in names if (module, n) not in _PENDING and (module, n) not in _EXCEPTED]
+    names = [n for n in names if (module, n) not in _EXCEPTED]
     missing = [n for n in names if not hasattr(mod, n)]
     assert not missing, f"{module} missing {missing}"
 
@@ -71,15 +66,6 @@ def test_not_ported_by_design(key):
     mod = importlib.import_module(module)
     assert not hasattr(mod, name), f"{module}.{name} exists: move it out of BY_DESIGN"
     assert hasattr(mod, counterpart), f"{module}.{counterpart} missing"
-
-
-@pytest.mark.parametrize(
-    "module, name",
-    [pytest.param(m, n, marks=pytest.mark.xfail(strict=True, reason="a later slice")) for m, n in STILL_TO_PORT],
-    ids=[f"{m}.{n}" for m, n in STILL_TO_PORT],
-)
-def test_still_to_port(module, name):
-    assert hasattr(importlib.import_module(module), name)
 
 
 def test_2_1_native_kernels():
@@ -195,7 +181,7 @@ def test_examples_parity(name):
     assert EXAMPLES[name] in os.listdir(os.path.join(ROOT, "sgl_tpu_torch", "examples"))
 
 
-@pytest.mark.parametrize("name", [pytest.param(n, marks=pytest.mark.xfail(strict=True, reason="a later slice"))
-                                  for n in EXAMPLES_TO_PORT])
-def test_examples_still_to_port(name):
-    assert name in os.listdir(os.path.join(ROOT, "sgl_tpu_torch", "examples"))
+def test_examples_cover_every_script():
+    """``EXAMPLES`` names every script of ``examples/``."""
+    scripts = sorted(f for f in os.listdir(os.path.join(ROOT, "examples")) if f.endswith(".py"))
+    assert scripts == sorted(EXAMPLES)

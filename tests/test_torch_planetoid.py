@@ -57,7 +57,14 @@ def test_parse_matches_sgl_tpu(tmp_path, name, split, shape):
     _assert_same(Planetoid(name, root=str(tmp_path) + "/", split=split), jds)
 
 
-def test_missing_raw_files_raise_and_name_them(tmp_path):
+def test_missing_raw_files_raise_and_name_them(tmp_path, monkeypatch):
+    import urllib.request
+
+    def offline(*a, **k):
+        raise OSError("no network")
+
+    # a missing file is fetched from the loader's source: offline, the fetch fails
+    monkeypatch.setattr(urllib.request, "urlopen", offline)
     raw = _raw_dir(tmp_path, "cora")
     write_raw_files(raw, "cora", num_nodes=300, num_features=10, num_classes=3, num_edges=400, num_test=50)
     os.remove(os.path.join(raw, "ind.cora.graph"))
