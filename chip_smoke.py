@@ -172,7 +172,20 @@ Phases; any failure raises and the script exits non-zero:
    held, the first hop against a float64 sum over 1,025 rows (the longest
    among them), and K1 at D = 602 against the plain version by blocks of
    rows, timed beside its bound and ``torch.sparse.mm``;
-14. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
+14. the clustering plots (``clustering_metrics.plotClusters``): Planetoid
+   files at pubmed's shape written from a seed, NAFS's "simple" smoothing
+   at ``PLOT_HOPS`` hops on the card, its K1 launches held to the hop
+   count, then ``plotClusters`` on those features (the port's t-SNE on the
+   card, its PNG on the host; no K1 launch); the conditional P of 1,024
+   sampled rows against a float64 computation on the CPU
+   (``PLOT_P_TOL``), the gradient at those rows at the PCA init and at the
+   final embedding against a float64 sum over all points on the CPU
+   (``PLOT_GRAD_TOL``), the final KL below the KL after the exploration,
+   the PNG read back at 768 × 576 with every class colour in it; the kNN,
+   P, PCA and descent times, the time an iteration, the peak device memory
+   and the trustworthiness (k = 10) of 2,000 sampled rows on the card,
+   the phase held to ``PLOT_BUDGET_S``;
+15. print one JSON line ``{"kernels": [...]}`` with each kernel's launches
    (for K1–K4 and D2–D6 also the fix-up's; for K1/K2 also phase 7's, as
    ``zoo_launches``, and phase 9's, as ``hetero_launches``, with their
    times at the two phase-9 batches; for K1 also phase 8's, as
@@ -181,8 +194,9 @@ Phases; any failure raises and the script exits non-zero:
    ``ooc_launches``, with each form's hop times, and phase 12's, as
    ``ring_launches`` and ``ring_work``; for K1 phase 13's, as
    ``loader_launches``, with its times at Reddit's and Flickr's shapes
-   under ``shapes``), errors and times beside its bound;
-15. print ``{"ok": true, "device": {...}}`` as the last line.
+   under ``shapes``, and phase 14's, as ``plot_launches``), errors and
+   times beside its bound;
+16. print ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs a CUDA device and the repository's ``sgl_tpu_torch`` package next
 to it, and exits non-zero without printing a result when either is missing.
@@ -269,6 +283,12 @@ DEV_REPLACES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def check(ok, msg) -> None:
@@ -2764,8 +2784,8 @@ SHAPE_KEYS = ("n", "nnz", "d", "launches", "ms", "plain_ms", "library_ms", "boun
               "max_rel_err")
 
 
-def on_card(t, what: str) -> None:
-    check(t.is_cuda, f"[13] {what}: not on the card")
+def on_card(t, what: str, phase: str = "13") -> None:
+    check(t.is_cuda, f"[{phase}] {what}: not on the card")
 
 
 def offline_urlopen(asked: list):
@@ -3119,17 +3139,209 @@ def loaders_phase(dev) -> dict:
     return dict(small=small, flickr=flickr, reddit=reddit, backend=backend, examples=examples, launches=launches)
 
 
+# -- phase 14: the clustering plots ----------------------------------------------------
+
+# Planetoid files at pubmed's shape (``write_raw_files``' defaults: 19,717
+# nodes, 500 features, 3 classes, 44,324 undirected edges), NAFS's "simple"
+# smoothing at a few hops, then ``plotClusters`` on the card
+PLOT_PUBMED = {}
+PLOT_HOPS = 3
+# rows held against float64 on the CPU, and the trustworthiness sample (k = 10)
+PLOT_CHECK_ROWS = 1024
+PLOT_TRUST_ROWS = 2000
+PLOT_TRUST_K = 10
+# the conditional P (absolute) and the gradient (relative: see plot_phase)
+# against float64
+PLOT_P_TOL = 1e-6
+PLOT_GRAD_TOL = 1e-4
+PLOT_BUDGET_S = 60.0
+PAIR_OPERATIONS = 13
+
+
+def conditional_p_rows_f64(x: np.ndarray, rows: np.ndarray, k: int, perplexity: float):
+    """The plain version of the kNN and the binary search for ``rows``:
+    float64 distances to every point in numpy (``|x|² + |y|² - 2 x·y``),
+    the k nearest other points,
+    cast to float32 as scikit-learn does, then ``_binary_search_perplexity``
+    one row at a time.  Returns ``(neighbour ids, P)``, each row by id."""
+    x64 = x.astype(np.float64)
+    sq = (x64 * x64).sum(1)
+    every = np.maximum(sq[rows, None] + sq[None, :] - 2.0 * (x64[rows] @ x64.T), 0.0)
+    desired = np.log(np.float64(np.float32(perplexity)))
+    tol, tiny = np.float64(np.float32(1e-5)), np.float64(np.float32(1e-8))
+    ids_out, p_out = [], []
+    for i, d in zip(rows, every):
+        d[i] = np.inf
+        ids = np.argsort(d, kind="stable")[:k]
+        dist = d[ids].astype(np.float32).astype(np.float64)
+        beta, lo, hi = 1.0, -np.inf, np.inf
+        for _ in range(100):
+            p = np.exp(-dist * beta)
+            total = p.sum() or tiny
+            p /= total
+            diff = np.log(total) + beta * (dist * p).sum() - desired
+            if abs(diff) <= tol:
+                break
+            if diff > 0:
+                lo, beta = beta, beta * 2.0 if hi == np.inf else (beta + hi) / 2.0
+            else:
+                hi, beta = beta, beta / 2.0 if lo == -np.inf else (beta + lo) / 2.0
+        order = np.argsort(ids)
+        ids_out.append(ids[order])
+        p_out.append(p[order])
+    return np.stack(ids_out), np.stack(p_out)
+
+
+def kl_grad_rows_f64(y: torch.Tensor, P, rows: np.ndarray, block: int = 2048) -> tuple:
+    """The plain version of the t-SNE gradient (one degree of freedom) at
+    ``rows``, on the CPU in float64: ``4 (Σ_j p_ij w_ij (y_i - y_j) - Σ_j
+    w_ij² (y_i - y_j) / Z)``, ``w = 1 / (1 + d²)``, Z summed over all pairs.
+    Returns the gradient and the largest of its two terms' entries."""
+    y = y.detach().double().cpu()
+    n = y.shape[0]
+    z = torch.zeros((), dtype=torch.float64)
+    for a in range(0, n, block):
+        w = 1.0 / (1.0 + torch.cdist(y[a:a + block], y, compute_mode="donot_use_mm_for_euclid_dist") ** 2)
+        w[torch.arange(w.shape[0]), torch.arange(a, a + w.shape[0])] = 0.0
+        z += w.sum()
+    rowptr, col, val = P.rowptr.cpu(), P.col.cpu(), P.val.cpu()
+    attract = torch.empty((len(rows), 2), dtype=torch.float64)
+    repel = torch.empty_like(attract)
+    for r, i in enumerate(rows):
+        js, p = col[rowptr[i]:rowptr[i + 1]], val[rowptr[i]:rowptr[i + 1]]
+        near = y[i] - y[js]
+        attract[r] = 4.0 * ((p / (1.0 + (near ** 2).sum(1)))[:, None] * near).sum(0)
+        every = y[i] - y
+        w = 1.0 / (1.0 + (every ** 2).sum(1))
+        w[i] = 0.0
+        repel[r] = 4.0 * ((w * w)[:, None] * every).sum(0) / z
+    return attract - repel, max(attract.abs().max().item(), repel.abs().max().item())
+
+
+def inked_colours(picture: np.ndarray, colours) -> dict:
+    """Pixels of each colour (exactly its RGB) in an RGBA picture."""
+    from sgl_tpu_torch.utils.figure import to_rgba
+
+    rgb = picture[..., :3]
+    return {c: int((rgb == np.rint(np.asarray(to_rgba(c)[:3]) * 255).astype(np.uint8)).all(-1).sum())
+            for c in colours}
+
+
+def plot_phase(dev) -> dict:
+    """The clustering plots on the card (section 14 of the module
+    docstring); returns the phase's numbers."""
+    from sgl_tpu_torch.datasets import Planetoid
+    from sgl_tpu_torch.datasets.planetoid import write_raw_files
+    from sgl_tpu_torch.tasks import nafs_smooth_sweep
+    from sgl_tpu_torch.tasks import tsne as T
+    from sgl_tpu_torch.tasks.clustering_metrics import PLOT_COLORS, clustering_metrics
+    from sgl_tpu_torch.utils.figure import read_png
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        write_raw_files(os.path.join(root, "Planetoid", "pubmed", "raw"), "pubmed", seed=0, **PLOT_PUBMED)
+        ds = Planetoid("pubmed", root + "/", "official")
+        load_s = time.perf_counter() - t
+        feats, nafs_s, counts, fixups, _ = count_launches(lambda: [h for _, h in nafs_smooth_sweep(
+            ds.graph, ds.x, [PLOT_HOPS], [0.5], "simple", device=dev)][-1])
+        on_card(feats, "NAFS features", "14")
+        check(counts["f32"] == PLOT_HOPS and sum(counts.values()) == PLOT_HOPS,
+              f"[14] NAFS simple: K1 launches {counts}, expected {PLOT_HOPS} of f32")
+        labels = np.asarray(ds.y)
+        metrics = clustering_metrics(labels, labels)
+        path = os.path.join(root, "plot.png")
+        out, plot_s, plot_counts, _, peak = count_launches(
+            lambda: metrics.plotClusters(feats, labels, path=path, device=dev))
+        check(out == path and sum(plot_counts.values()) == 0, f"[14] plotClusters: {out}, K1 launches {plot_counts}")
+        picture = read_png(path)
+    tsne = metrics.tsne_
+    n = feats.shape[0]
+    y = tsne.embedding_
+    on_card(y, "the t-SNE embedding", "14")
+    check(tuple(y.shape) == (n, 2) and torch.isfinite(y).all().item(), f"[14] embedding {tuple(y.shape)}")
+    check(picture.shape == (576, 768, 4), f"[14] the PNG is {picture.shape}, expected (576, 768, 4)")
+    classes = int(labels.max()) + 1
+    inked = inked_colours(picture, PLOT_COLORS[:classes])
+    check(all(v > 0 for v in inked.values()), f"[14] the PNG's class colours {inked}")
+    check(tsne.kl_divergence_ < tsne.kl_after_exploration_,
+          f"[14] final KL {tsne.kl_divergence_} not below the KL after exploration {tsne.kl_after_exploration_}")
+
+    # the parts on the card against float64 on the CPU, at sampled rows
+    rng = np.random.default_rng(0)
+    rows = np.sort(rng.choice(n, min(PLOT_CHECK_ROWS, n), replace=False))
+    x = feats.float()
+    k = min(n - 1, int(3.0 * tsne.perplexity + 1))
+    dist, idx = T.knn_sq_distances(x, k)
+    cond = T.conditional_p(dist, tsne.perplexity)
+    P = T.joint_p(cond, idx)
+    want_ids, want_p = conditional_p_rows_f64(x.cpu().numpy(), rows, k, tsne.perplexity)
+    got_ids, got_p = idx[rows].cpu().numpy(), cond[rows].cpu().numpy()
+    order = np.argsort(got_ids, axis=1)
+    got_ids, got_p = np.take_along_axis(got_ids, order, 1), np.take_along_axis(got_p, order, 1)
+    same = (got_ids == want_ids).all(1)
+    check(same.mean() >= 0.99, f"[14] kNN: {int((~same).sum())} of {rows.size} rows have other neighbours")
+    p_err = float(np.abs(got_p[same] - want_p[same]).max())
+    check(p_err <= PLOT_P_TOL, f"[14] conditional P vs float64 on the CPU {p_err:.3e}")
+    # the error over the gradient's largest entry at the init; at the final y,
+    # where the attraction and the repulsion nearly cancel (the net gradient
+    # is many times smaller than either), over the terms' largest entry:
+    # float32 resolves each term, not their small difference
+    grad_errs = {}
+    for name, at in (("init", T.pca_init(x)), ("final", y)):
+        got = T.kl_grad(at, P)[1][torch.as_tensor(rows, device=dev)].cpu()
+        want, terms = kl_grad_rows_f64(at, P, rows)
+        abs_err, net_err = rel_err(got, want)
+        grad_errs[name] = dict(net=net_err, terms=abs_err / terms, net_over_terms=want.abs().max().item() / terms)
+        held = grad_errs[name]["net" if name == "init" else "terms"]
+        check(held <= PLOT_GRAD_TOL, f"[14] gradient at the {name} y vs float64: {grad_errs[name]}")
+    # one gradient at the final y alone, beside the least time of its exact
+    # repulsion: N² pairs of 13 f32 operations (two differences, the squared
+    # distance 3, 1 / (1 + d²) 2, Z 1, w² 1, the two force terms 4)
+    kl_ms = time_ms(lambda: T.kl_grad(y, P, compute_error=False), device=dev)
+    kl_bound_ms = n * n * PAIR_OPERATIONS / F32_FLOPS * 1e3
+    rows_t = torch.as_tensor(rng.choice(n, min(PLOT_TRUST_ROWS, n), replace=False), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trust = T.trustworthiness(x, y, PLOT_TRUST_K, rows=rows_t)
+    trust_s = time.perf_counter() - t
+    check(0.0 <= trust <= 1.0, f"[14] trustworthiness {trust}")
+    iterations = tsne.n_iter_ + 1
+    timings = dict(tsne.timings_)
+    tsne_s = sum(timings.values())
+    phase_s = time.perf_counter() - start
+    log(f"[14] pubmed-shaped Planetoid ({n} nodes, {ds.graph.num_edges} stored edges, {ds.num_features} features, "
+        f"{classes} classes) written and parsed in {load_s:.2f} s; NAFS simple at {PLOT_HOPS} hops on the card "
+        f"{nafs_s:.4f} s, K1 launches {counts['f32']} + fix-ups {fixups['f32']}")
+    log(f"[14] plotClusters on the card: {plot_s:.2f} s in all (t-SNE {tsne_s:.2f} s: kNN (k = {k}) "
+        f"{timings['knn']:.4f} s, P {timings['p']:.4f} s ({P.val.numel()} nonzeros), PCA {timings['pca']:.4f} s, "
+        f"descent {timings['descent']:.3f} s for {iterations} iterations, {timings['descent'] / iterations * 1e3:.3f} "
+        f"ms an iteration); peak device memory {peak / 2**30:.3f} GiB; KL after exploration "
+        f"{tsne.kl_after_exploration_:.4f}, final {tsne.kl_divergence_:.4f}; the PNG 768 x 576, class colours' "
+        f"pixels {inked}; one gradient at the final y {kl_ms:.3f} ms (CUDA events), the exact repulsion's bound "
+        f"{kl_bound_ms:.4f} ms ({n}² pairs x {PAIR_OPERATIONS} f32 operations at {F32_FLOPS / 1e12:.0f} TFLOP/s)")
+    log(f"[14] on {rows.size} rows against float64 on the CPU: conditional P max abs err {p_err:.3e} (limit "
+        f"{PLOT_P_TOL:.0e}, {int(same.sum())} rows with the same neighbours); gradient max abs err over its max "
+        f"entry at the PCA init {grad_errs['init']['net']:.3e} (limit {PLOT_GRAD_TOL:.0e}), at the final y "
+        f"{grad_errs['final']['net']:.3e} over its max entry and {grad_errs['final']['terms']:.3e} over its terms' "
+        f"(limit {PLOT_GRAD_TOL:.0e}; the net is {grad_errs['final']['net_over_terms']:.3e} of the terms); "
+        f"trustworthiness (k = {PLOT_TRUST_K}) over {rows_t.numel()} rows {trust:.6f} in {trust_s:.3f} s")
+    log(f"[14] {smi_line()}: the phase took {phase_s:.2f} s (budget {PLOT_BUDGET_S:.0f} s)")
+    check(phase_s <= PLOT_BUDGET_S, f"[14] the phase took {phase_s:.2f} s, over its {PLOT_BUDGET_S:.0f} s budget")
+    return dict(launches=counts["f32"], fixup_launches=fixups["f32"], nafs_s=nafs_s, plot_s=plot_s, tsne_s=tsne_s,
+                timings=timings, iterations=iterations, ms_per_iteration=timings["descent"] / iterations * 1e3,
+                peak_bytes=peak, kl=tsne.kl_divergence_, kl_after_exploration=tsne.kl_after_exploration_,
+                p_err=p_err, grad_errs=grad_errs, trustworthiness=trust, phase_s=phase_s, inked=inked, kl_ms=kl_ms,
+                kl_bound_ms=kl_bound_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs one GPU", file=sys.stderr)
         return 1
     from sgl_tpu_torch.kernels import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi)
+    log(smi_line())
     dev = torch.device("cuda")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
@@ -3181,8 +3393,9 @@ def main() -> int:
     dist = phase("12", dist_phase, dev, products_graph)
     del products_graph, products_refs
     loaders = phase("13", loaders_phase, dev)
+    plot = phase("14", plot_phase, dev)
     print(json.dumps(kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
-                                  zoo_launches, label, hetero, ooc, nas, dist, loaders)))
+                                  zoo_launches, label, hetero, ooc, nas, dist, loaders, plot)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
@@ -3190,7 +3403,7 @@ def main() -> int:
 
 
 def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launches, dev_results,
-                 zoo_launches, label, hetero, ooc, nas, dist, loaders) -> dict:
+                 zoo_launches, label, hetero, ooc, nas, dist, loaders, plot) -> dict:
     kernels = []
     for key in ("f32", "bf16"):
         r = bench[key]
@@ -3220,6 +3433,8 @@ def kernels_line(bench, launches, main_errs, stream_bench, products, dev_launche
               shapes={name: {k: loaders[name][k] for k in SHAPE_KEYS} for name in ("reddit", "flickr")})
     k1["max_abs_err"] = max(k1["max_abs_err"], *(loaders[n]["max_abs_err"] for n in ("reddit", "flickr")))
     k1["max_rel_err"] = max(k1["max_rel_err"], *(loaders[n]["max_rel_err"] for n in ("reddit", "flickr")))
+    # phase 14, the clustering plots, apart from the main path: NAFS's hops
+    k1.update(plot_launches=plot["launches"], plot_fixup_launches=plot["fixup_launches"])
     # phase 9, the NARS path and graph classification, apart from the main
     # path: their launches, and K1/K2 at the NARS and graph-level batches
     for key, k in zip(("f32", "bf16"), kernels[:2]):

@@ -58,6 +58,12 @@ class SparseAdj:
     num_nodes: int
     sorted_by_dst: bool = False
 
+    @property
+    def nnz_padded(self) -> int:
+        """The stored edges, the zero-weight padding edges included (as
+        ``sgl_tpu``'s: both keep the padding ``Graph.from_coo`` adds)."""
+        return int(self.src.shape[0])
+
     def transpose(self) -> "SparseAdj":
         """The same edges reversed: ``Aᵀ``, no longer sorted by dst."""
         return SparseAdj(self.dst, self.src, self.w, self.num_nodes, False)

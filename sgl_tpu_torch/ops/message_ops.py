@@ -41,6 +41,12 @@ class MessageOp(nn.Module):
     def _slice(self, hops: torch.Tensor) -> torch.Tensor:
         return hops[self.start : self.end]
 
+    @property
+    def learnable(self) -> bool:
+        """Whether the op has weights of its own (its ``aggr_type`` is one
+        of :data:`LEARNABLE_AGGR_TYPES`)."""
+        return self.aggr_type in LEARNABLE_AGGR_TYPES
+
     def linear_weights(self, k_all: int):
         """Fixed per-hop weights ``w`` such that ``aggregate(hops) ==
         sum_k w[k] hops[k]``, or None when the op is not a static linear

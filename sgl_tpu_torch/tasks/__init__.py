@@ -22,3 +22,4 @@ from sgl_tpu_torch.tasks.node_classification_with_label_use import (  # noqa: F4
 )
 from sgl_tpu_torch.tasks.hetero_node_classification import HeteroNodeClassification  # noqa: F401
 from sgl_tpu_torch.tasks.inference import Predictor, predictor_from_task  # noqa: F401
+from sgl_tpu_torch.tasks.tsne import TSNE, trustworthiness  # noqa: F401

@@ -4,8 +4,13 @@ Accuracy matches clusters to labels by the Hungarian method
 (``scipy.optimize.linear_sum_assignment``); the F1 / precision / recall
 scores, NMI (arithmetic mean of the entropies, scikit-learn's default) and
 ARI are computed here in numpy from the contingency table, with
-scikit-learn's definitions and special cases.  The t-SNE plotting helpers
-of ``sgl_tpu`` (``plot``, ``plotClusters``) are not ported.
+scikit-learn's definitions and special cases.
+
+``plotClusters`` runs the port's own t-SNE (:class:`~sgl_tpu_torch.tasks.
+tsne.TSNE`, in torch on the device) where ``sgl_tpu`` runs scikit-learn's,
+and draws on the port's own raster figure
+(:class:`~sgl_tpu_torch.utils.figure.Figure`, a PNG written with ``zlib``)
+where ``sgl_tpu`` draws with matplotlib; ``plot`` draws on either.
 """
 
 from __future__ import annotations
@@ -13,7 +18,14 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 from scipy.optimize import linear_sum_assignment
+
+from sgl_tpu_torch.tasks.tsne import TSNE
+from sgl_tpu_torch.utils.figure import Figure
+
+# the colours of sgl_tpu's plotClusters, label i drawn in colour i
+PLOT_COLORS = ("red", "green", "blue", "brown", "purple", "yellow", "pink", "orange")
 
 
 def _contingency(a: np.ndarray, b: np.ndarray):
@@ -121,3 +133,31 @@ class clustering_metrics:  # noqa: N801 — the reference's name
         nmi = normalized_mutual_info(self.true_label, self.pred_label)
         ari = adjusted_rand(self.true_label, self.pred_label)
         return self.clusteringAcc()[0], nmi, ari
+
+    @staticmethod
+    def plot(X, fig, col, size, true_labels):
+        """Scatter the 2-D points ``X`` on a new subplot of ``fig``, the
+        points of label i in colour ``col[i]`` at size ``size``; labels past
+        ``len(col) - 1`` are not drawn.  ``fig`` is the port's
+        :class:`~sgl_tpu_torch.utils.figure.Figure` or a matplotlib figure;
+        ``X`` and ``true_labels`` may be tensors on the card."""
+        ax = fig.add_subplot(1, 1, 1)
+        X = X.detach().cpu().numpy() if torch.is_tensor(X) else np.asarray(X)
+        true_labels = true_labels.cpu().numpy() if torch.is_tensor(true_labels) else np.asarray(true_labels)
+        for i, c in enumerate(col[: int(true_labels.max()) + 1]):
+            pts = X[true_labels == i]
+            ax.scatter(pts[:, 0], pts[:, 1], lw=0, s=size, c=c)
+
+    def plotClusters(self, hidden_emb, true_labels, path="plot.png", device=None):  # noqa: N802
+        """The t-SNE of ``hidden_emb`` on ``device`` (default: the GPU),
+        scattered by true label in eight colours at size 40, the axis off,
+        saved to ``path`` as a PNG at 120 dpi; returns ``path``.  The t-SNE
+        run is kept as ``tsne_``."""
+        n = len(hidden_emb)
+        self.tsne_ = TSNE(n_components=2, perplexity=min(30.0, max(2.0, n / 4)), device=device)
+        x_tsne = self.tsne_.fit_transform(hidden_emb)
+        fig = Figure()
+        self.plot(x_tsne, fig, PLOT_COLORS, 40, true_labels)
+        fig.gca().axis("off")
+        fig.savefig(path, dpi=120)
+        return path

@@ -107,9 +107,13 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
                                           "bf16": {"gloo (1, 2) SGC bf16": [[6, 3], [6, 3]]}})
     shape = dict(probe, n=10, nnz=40, d=602, launches=5, max_abs_err=0.0, max_rel_err=0.0, write_s=9.0)
     loaders = dict(launches=77, reddit=dict(shape), flickr=dict(shape, d=500, max_rel_err=0.125))
+    plot = dict(launches=3, fixup_launches=0)
     line = kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
-                        dev_launches, dev_results, zoo, label, hetero, ooc, nas, dist, loaders)
+                        dev_launches, dev_results, zoo, label, hetero, ooc, nas, dist, loaders, plot)
     kernels = line["kernels"]
+    # phase 14's on K1 alone: NAFS's hops before the clustering plot
+    assert (kernels[0]["plot_launches"], kernels[0]["plot_fixup_launches"]) == (3, 0)
+    assert all("plot_launches" not in k for k in kernels[1:])
     # phase 13's on K1 alone: the loaders' launches, K1 at Reddit's and Flickr's shapes
     assert kernels[0]["loader_launches"] == 77 and "loader_launches" not in kernels[1]
     assert kernels[0]["shapes"]["reddit"]["d"] == 602 and kernels[0]["shapes"]["flickr"]["d"] == 500
@@ -131,7 +135,7 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
     ooc["products"]["2d bf16"]["max_rel_err"] = 0.25
     assert kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
                         dev_launches, dev_results, zoo, label, hetero, ooc, nas, dist,
-                        loaders)["kernels"][3]["max_rel_err"] == 0.25
+                        loaders, plot)["kernels"][3]["max_rel_err"] == 0.25
     # phase 9's on K1 and K2, with their times at the NARS and graph-level batches
     assert [(k["hetero_launches"], k["hetero_fixup_launches"]) for k in kernels[:2]] == [(9, 0), (3, 0)]
     assert all(k["nars_batch"]["ms"] == 1.0 and k["graph_batch"]["bound_by"] == "bytes" for k in kernels[:2])
@@ -442,3 +446,46 @@ def test_loaders_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     assert len(out["examples"]) == 7 and out["examples"]["papers100m_pipeline --data"]["kernel"] == "acc_f32"
     assert out["launches"] >= 2 * 17
     assert "refused by the stub" in capsys.readouterr().out
+
+
+def test_plot_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 14 on the CPU at a small Planetoid shape (400 nodes), the
+    card's control flow: NAFS's products reach a counting ``spmm_csr``, the
+    t-SNE runs in full; every check holds but those that the work ran on
+    the card."""
+    import chip_smoke as cs
+    from sgl_tpu_torch.graph import symmetric_normalized_weights
+    from sgl_tpu_torch.kernels import prepare_csr
+    from sgl_tpu_torch.kernels.spmm_csr import spmm_csr
+    from sgl_tpu_torch.tasks import node_clustering
+
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    failures = []
+    monkeypatch.setattr(cs, "check", lambda ok, msg: ok or failures.append(str(msg)))
+    monkeypatch.setattr(cs, "smi_line", lambda: "a card, 700.00 W")
+    monkeypatch.setattr(cs, "time_ms", lambda fn, warmup=3, iters=20, device=None: (fn(), 1.0)[1])
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    counts, fixups = spmm_csr.launches, spmm_csr.fixup_launches
+    monkeypatch.setattr(sys.modules["sgl_tpu_torch.kernels.spmm_csr"], "spmm_csr",
+                        _counting(spmm_csr, counts, fixups, lambda x: "f32"))
+    monkeypatch.setattr(node_clustering, "_layout", lambda graph, r, device: prepare_csr(
+        symmetric_normalized_weights(graph, r=r, device=device)))
+    monkeypatch.setattr(cs, "PLOT_PUBMED", dict(num_nodes=400, num_features=32, num_edges=800, num_test=100))
+    monkeypatch.setattr(cs, "PLOT_CHECK_ROWS", 64)
+    monkeypatch.setattr(cs, "PLOT_TRUST_ROWS", 150)
+    try:
+        out = cs.plot_phase(cpu)
+    finally:
+        torch.set_num_threads(threads)
+    assert failures and all("not on the card" in f for f in failures), [f for f in failures
+                                                                        if "not on the card" not in f]
+    assert (out["launches"], out["iterations"]) == (cs.PLOT_HOPS, 1000)
+    assert out["p_err"] <= cs.PLOT_P_TOL and out["grad_errs"]["init"]["net"] <= cs.PLOT_GRAD_TOL
+    assert out["grad_errs"]["final"]["terms"] <= cs.PLOT_GRAD_TOL
+    assert out["kl"] < out["kl_after_exploration"] and 0.5 < out["trustworthiness"] <= 1.0
+    assert len(out["inked"]) == 3 and min(out["inked"].values()) > 0
+    assert "[14] a card, 700.00 W" in capsys.readouterr().out

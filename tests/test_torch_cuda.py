@@ -857,3 +857,35 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
             assert np.abs(got - want).max() / np.abs(want).max() <= 1e-5, layout
             got = r["arrays"][f"{layout}_bf16_gather"]
             assert np.abs(got - want).max() / np.abs(want).max() <= 3e-2, layout
+
+
+def test_tsne_on_the_card_matches_the_cpu(cuda):
+    """The port's t-SNE (``tasks/tsne.py``) on the card against the CPU at
+    N = 500: the kNN and P (within 1e-6), the gradient at a random y
+    (1e-5 of its largest entry) and the embedding after 5 iterations of
+    the exaggerated descent (1e-4 of its largest entry).  After 50 the two
+    differ by 2.1 × max|y| (measured on an H100): the exaggerated descent
+    amplifies rounding, as scikit-learn's does its own from an init one
+    float32 ulp away (``tests/test_torch_tsne.py``)."""
+    from sgl_tpu_torch.tasks import tsne as T
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 4, (3, 16))
+    x = torch.as_tensor((centers[rng.integers(0, 3, 500)] + rng.normal(size=(500, 16))).astype(np.float32))
+    y = torch.as_tensor(rng.normal(size=(500, 2)).astype(np.float32) * 5)
+    parts = {}
+    for dev in (torch.device("cpu"), cuda):
+        dist, idx = T.knn_sq_distances(x.to(dev), 91)
+        P = T.joint_p(T.conditional_p(dist, 30.0), idx)
+        exaggerated = P.scaled(12.0)
+        y5 = T.gradient_descent(lambda p, compute_error: T.kl_grad(p, exaggerated, 1, compute_error),
+                                 T.pca_init(x.to(dev)), 0, 5, n_iter_check=50, n_iter_without_progress=250,
+                                 momentum=0.5, learning_rate=50.0)[0]
+        parts[dev.type] = dict(idx=idx.cpu(), rowptr=P.rowptr.cpu(), col=P.col.cpu(), val=P.val.cpu(),
+                               grad=T.kl_grad(y.to(dev), P)[1].cpu(), y5=y5.cpu())
+    cpu, card = parts["cpu"], parts["cuda"]
+    assert torch.equal(cpu["idx"], card["idx"])
+    assert torch.equal(cpu["col"], card["col"]) and torch.equal(cpu["rowptr"], card["rowptr"])
+    assert (cpu["val"] - card["val"]).abs().max().item() <= 1e-6
+    assert ((cpu["grad"] - card["grad"]).abs().max() / cpu["grad"].abs().max()).item() <= 1e-5
+    assert ((cpu["y5"] - card["y5"]).abs().max() / cpu["y5"].abs().max()).item() <= 1e-4

@@ -40,7 +40,7 @@ MODULES = [
     "sgl_tpu_torch.datasets.raw_files", "sgl_tpu_torch.examples.sgc_pubmed", "sgl_tpu_torch.examples.gamlp_products",
     "sgl_tpu_torch.examples.hetero_nars", "sgl_tpu_torch.examples.graph_classification",
     "sgl_tpu_torch.examples.nafs_link_predict", "sgl_tpu_torch.examples.nafs_node_cluster",
-    "sgl_tpu_torch.examples.reproduce_accuracy",
+    "sgl_tpu_torch.examples.reproduce_accuracy", "sgl_tpu_torch.tasks.tsne", "sgl_tpu_torch.utils.figure",
     "chip_smoke",
 ] + [
     f"sgl_tpu_torch.{p}" for p in SUBPACKAGES

@@ -9,11 +9,18 @@ its module in ``sgl_tpu_torch/examples``.
 
 The distributed runtime's TPU devices, dropped by design, are checked absent
 from the port's signatures too.
+
+Below the module names, the class members: for every module of ``sgl_tpu``
+with a counterpart file in the port, every public method and property
+that a class of ``sgl_tpu`` defines (in its own ``sgl_tpu`` classes, not in
+Flax's or the standard library's) is on the port's class of the same name
+(``hasattr``, so that inheritance counts), minus ``BY_DESIGN_MEMBERS``.
 """
 
 import importlib
 import inspect
 import os
+import pathlib
 
 import pytest
 
@@ -30,6 +37,8 @@ BY_DESIGN = {
     ("sgl_tpu.tasks.utils", "init_train_state"): ("sgl_tpu_torch.tasks.utils", "make_train_step",
                                                   "JAX train state; the port's modules and optimizer hold it"),
     ("sgl_tpu.utils", "xla_trace"): ("sgl_tpu_torch.utils", "torch_trace", "XLA's profiler"),
+    ("sgl_tpu.tasks.utils", "TrainState"): ("sgl_tpu_torch.tasks.utils", "make_train_step",
+                                            "JAX train state; the port's modules and optimizer hold it"),
 }
 
 # examples/ scripts -> the port's example module
@@ -49,6 +58,54 @@ EXAMPLES = {
 }
 
 _EXCEPTED = {(m.replace("sgl_tpu", "sgl_tpu_torch", 1), n) for m, n in BY_DESIGN}
+
+# class members of sgl_tpu the port does not have, or has with another
+# signature: member -> (on the port's class?, why)
+BY_DESIGN_MEMBERS = {
+    "tree_flatten": (False, "JAX's pytree registration; the port's containers are plain dataclasses"),
+    "tree_unflatten": (False, "ditto"),
+    "parent": (False, "the Flax module's parent scope, a field Flax adds to every module; torch's "
+                      "nn.Module has no parent link"),
+    "init": (True, "Flax's init(rng, ...) returns the parameters; the port's init(generator=None) "
+                   "re-draws the module's own parameters in place"),
+}
+# sgl_tpu modules with no counterpart file in the port -> why
+NO_COUNTERPART = {
+    "sgl_tpu.kernels.pallas_spmm": "the TPU chunk layout and its Pallas kernels (BY_DESIGN's names); "
+                                   "the port's CSR kernel is sgl_tpu_torch/kernels/spmm_csr.py",
+    "sgl_tpu.utils.compile_cache": "XLA's persistent compilation cache (sgl_tpu_torch/utils/__init__.py)",
+}
+JAX_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in (pathlib.Path(ROOT) / "sgl_tpu").rglob("*.py")
+)
+PORTED_MODULES = [m for m in JAX_MODULES if m not in NO_COUNTERPART]
+
+
+def _public_members(cls) -> dict:
+    """Public methods and properties (any descriptor: functions, static and
+    class methods, properties, Flax's wrapped ones) that ``cls`` and its
+    ``sgl_tpu`` bases define, by name."""
+    out = {}
+    for base in reversed(cls.__mro__):
+        if not base.__module__.startswith("sgl_tpu."):
+            continue
+        for name, value in vars(base).items():
+            if not name.startswith("_") and hasattr(type(value), "__get__") and not inspect.isclass(value):
+                out[name] = value
+    return out
+
+
+def _classes(module: str):
+    """``(name, sgl_tpu's class, the port's class or None)`` for each public
+    class that ``module`` defines, bar ``BY_DESIGN``'s."""
+    mod = importlib.import_module(module)
+    port = importlib.import_module(module.replace("sgl_tpu", "sgl_tpu_torch", 1))
+    for name, cls in sorted(vars(mod).items()):
+        if name.startswith("_") or not inspect.isclass(cls) or cls.__module__ != module:
+            continue
+        if (port.__name__, name) not in _EXCEPTED:
+            yield name, cls, getattr(port, name, None)
 
 
 def _has(module: str, *names: str):
@@ -171,6 +228,48 @@ def test_5_auxiliary_subsystems():
     _has("sgl_tpu_torch.utils", "HopCheckpointer", "save_train_state", "load_train_state", "save_pytree",
          "load_pytree")
     _has("sgl_tpu_torch.utils", "TrainConfig", "MeshConfig")
+
+
+def test_every_module_has_a_counterpart_or_a_reason():
+    """Each ``sgl_tpu`` module has its file in the port, or is in
+    ``NO_COUNTERPART`` (and then has none)."""
+    for module in JAX_MODULES:
+        rel = pathlib.Path(*module.split(".")[1:])
+        exists = (pathlib.Path(ROOT) / "sgl_tpu_torch" / rel).with_suffix(".py").exists() or (
+            pathlib.Path(ROOT) / "sgl_tpu_torch" / rel / "__init__.py").exists()
+        assert exists != (module in NO_COUNTERPART), module
+
+
+@pytest.mark.parametrize("module", PORTED_MODULES)
+def test_class_members(module):
+    """Every public method and property of ``module``'s classes is on the
+    port's class, bar ``BY_DESIGN_MEMBERS``."""
+    classes = list(_classes(module))
+    assert not [name for name, _, port_cls in classes if port_cls is None], "classes missing from the port"
+    missing = [f"{name}.{member}" for name, cls, port_cls in classes
+               for member in _public_members(cls)
+               if member not in BY_DESIGN_MEMBERS and not hasattr(port_cls, member)]
+    assert not missing, f"the port lacks {missing}"
+
+
+@pytest.mark.parametrize("member", sorted(BY_DESIGN_MEMBERS))
+def test_members_by_design(member):
+    """Each excepted member occurs on some ``sgl_tpu`` class with a port
+    counterpart, and is on the port's class exactly when its entry says so;
+    the present ones take other arguments than ``sgl_tpu``'s."""
+    present, _why = BY_DESIGN_MEMBERS[member]
+    seen = 0
+    for module in PORTED_MODULES:
+        for name, cls, port_cls in _classes(module):
+            if member not in _public_members(cls):
+                continue
+            seen += 1
+            assert hasattr(port_cls, member) == present, f"{module}.{name}.{member}"
+            if present:
+                theirs = inspect.signature(getattr(cls, member)).parameters
+                ours = inspect.signature(getattr(port_cls, member)).parameters
+                assert list(theirs) != list(ours), f"{module}.{name}.{member}: the same signature"
+    assert seen, f"{member}: no sgl_tpu class has it; drop it from BY_DESIGN_MEMBERS"
 
 
 @pytest.mark.parametrize("name", sorted(EXAMPLES))
