@@ -138,9 +138,10 @@ Phases; any failure raises and the script exits non-zero:
    stopped and resumed, bit-equal to an uninterrupted run;
 12. the distributed runtime (``sgl_tpu_torch/parallel``): on phase 5's
    products graph at P = 4, ``ring_bucket_work_time`` (the port of
-   ``spmm_dist.py:132``) f32 and bf16, its K3/K4 launches held, and each
+   ``spmm_dist.py:132``) f32 and bf16, its K3/K4 launches held, each
+   bucket's listed rows and the empty rows its launch drops, and each
    of the 16 buckets' launch against its plain twin, timed alone beside
-   its bound, the twin and ``torch.sparse.mm``; then
+   its bound, the twin and ``torch.sparse.mm`` on the bucket; then
    ``NodeClassificationDist`` on the main path's dataset and widths through
    ``sgl_tpu_torch.dev.dist_worker`` (``spmm_dist.py:777``'s port, one
    process a rank): NCCL at one rank on a (1, 1) mesh, gloo at two ranks
@@ -171,7 +172,9 @@ Phases; any failure raises and the script exits non-zero:
    and GAMLP (hidden 512, 3 layers) for 5 epochs each with their launches
    held, the first hop against a float64 sum over 1,025 rows (the longest
    among them), and K1 at D = 602 against the plain version by blocks of
-   rows, timed beside its bound and ``torch.sparse.mm``;
+   rows, timed beside its bound and ``torch.sparse.mm``; each K1 shape
+   with its column panels (``spmm_csr.panel_columns``) and its time over
+   ``torch.sparse.mm``'s;
 14. the clustering plots (``clustering_metrics.plotClusters``): Planetoid
    files at pubmed's shape written from a seed, NAFS's "simple" smoothing
    at ``PLOT_HOPS`` hops on the card, its K1 launches held to the hop
@@ -309,11 +312,21 @@ def f64_sum(adj, x):
     return y
 
 
-def describe_plan(plan, d: int) -> str:
+def describe_plan(plan, d: int, elem: int = 4) -> str:
     """A split plan in one phrase: its segment length, long rows, segments
-    and f32 workspace at width ``d``."""
+    and f32 workspace at width ``d``, its listed rows (neither empty nor
+    long: the accumulating form's row tasks), and the column panels the
+    one-shot form takes at ``d`` columns of ``elem`` bytes
+    (``spmm_csr.panel_columns``)."""
+    from sgl_tpu_torch.kernels.spmm_csr import panel_columns
+
+    n = plan.rowptr.shape[0] - 1
+    panel = panel_columns(n, d, elem)
+    panels = ("no panels" if panel >= d else
+              f"{-(-d // panel)} panels of {panel} columns ({n * panel * elem / 1e6:.1f} MB of x each)")
     return (f"segments of {plan.split} nonzeros: {plan.num_long} long rows in {plan.num_segments} "
-            f"segments, workspace {plan.workspace_bytes(d) / 1e6:.3f} MB")
+            f"segments, workspace {plan.workspace_bytes(d) / 1e6:.3f} MB; {plan.num_listed} listed rows; "
+            f"{panels}")
 
 
 def check_repeatable(fn, where: str) -> None:
@@ -514,7 +527,7 @@ def main_path_phase(dev):
         ms = time_ms(lambda: spmm_csr(adj, x))
         log(f"[3] spmm_csr {key} at the main-path shape ({adj.num_nodes} nodes, {adj.nnz} nonzeros, "
             f"d={x.shape[1]}, longest row {int(torch.diff(adj.rowptr.long()).max())}; plan: "
-            f"{describe_plan(adj.plan, x.shape[1])}): max abs err {errs[key][0]:.3e}, max rel err "
+            f"{describe_plan(adj.plan, x.shape[1], x.element_size())}): max abs err {errs[key][0]:.3e}, max rel err "
             f"{errs[key][1]:.3e} (vs an f64 sum {errs[key][2]:.3e}"
             f"{f', limit {F64_TOL:.0e}' if key == 'f32' else ''}); kernel {ms:.4f} ms/hop")
     return launches, errs
@@ -2539,13 +2552,17 @@ def ring_work_probe(dev, graph) -> dict:
     torch.cuda.synchronize()
     to_card_s = time.perf_counter() - t
     n_long = sum(part.plan.num_long > 0 for *_, part in buckets)
+    # the rows each bucket's row tasks walk, and the empty rows they drop
+    listed = [part.plan.num_listed for *_, part in buckets]
+    dropped = [int((torch.diff(part.rowptr) == 0).sum()) if part.plan.num_listed else 0 for *_, part in buckets]
     d = graph.num_features
     log(f"[12] products graph at P = {p}: block {dadj.block}, {dadj.nnz} bucket nonzeros (padding ratio "
         f"{ring_padding_stats(dadj)['ratio']:.1f}), diag {dadj.diag is not None}, out-hubs "
         f"{0 if dadj.hub_ids is None else dadj.hub_ids.numel()}, dst-hubs "
         f"{0 if dadj.hub_in_ids is None else dadj.hub_in_ids.numel()}; bucket nonzeros "
-        f"{[part.nnz for *_, part in buckets]}, {n_long} with a long row; normalize {normalize_s:.2f} s, layout "
-        f"{layout_s:.2f} s, buckets to the card {to_card_s:.2f} s")
+        f"{[part.nnz for *_, part in buckets]}, {n_long} with a long row; listed rows a bucket {listed}, empty rows "
+        f"dropped before the launch {dropped} ({sum(dropped)} of {sum(part.num_rows for *_, part in buckets)}); "
+        f"normalize {normalize_s:.2f} s, layout {layout_s:.2f} s, buckets to the card {to_card_s:.2f} s")
     hops = 1 + DIST_WORK["rounds"] * DIST_WORK["iters"]
     results = {}
     for key, dtype in DTYPES.items():
@@ -2574,12 +2591,14 @@ def ring_work_probe(dev, graph) -> dict:
         b = bound(nbytes, dadj.nnz, d)
         results[key] = dict(
             launches=launches, fixup_launches=fixups, hop_ms=hop_s * 1e3, ms=sum(ms),
-            bucket_ms=ms, plain_ms=sum(plain), library_ms=None if None in lib else sum(lib),
+            bucket_ms=ms, bucket_library_ms=lib, empty_rows_dropped=sum(dropped), plain_ms=sum(plain),
+            library_ms=None if None in lib else sum(lib),
             max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs), **b,
         )
         log(f"[12] ring_bucket_work_time {key}: {hop_s * 1e3:.4f} ms a hop of {p * p} launches; "
             f"launches {launches} + {fixups} fix-ups (held: {hops} hops); each bucket alone "
-            f"{[round(v, 4) for v in ms]} ms, sum {sum(ms):.4f}; vs twin max abs err "
+            f"{[round(v, 4) for v in ms]} ms, sum {sum(ms):.4f} (torch.sparse.mm a bucket "
+            f"{[None if v is None else round(v, 4) for v in lib]}); vs twin max abs err "
             f"{results[key]['max_abs_err']:.3e}, max rel err {results[key]['max_rel_err']:.3e} "
             f"(limit {TOL[key]:.0e}); plain twin {sum(plain):.4f} ms; bound {b['bound_ms']:.4f} ms "
             f"({nbytes / 1e9:.4f} GB at 3.35 TB/s); torch.sparse.mm on the buckets "
@@ -2781,7 +2800,7 @@ PAPERS_ARGS = ["--epochs", "2", "--batch", "5000", "--part-edges", str(1 << 16)]
 
 # what the JSON line keeps of K1 at Reddit's and Flickr's shapes
 SHAPE_KEYS = ("n", "nnz", "d", "launches", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
-              "max_rel_err")
+              "max_rel_err", "panel", "library_ratio")
 
 
 def on_card(t, what: str, phase: str = "13") -> None:
@@ -2896,6 +2915,7 @@ def k1_at_shape(adj, x, where: str, plain) -> dict:
     from sgl_tpu_torch.kernels import spmm_csr
 
     y = spmm_csr(adj, x)
+    panel = spmm_csr.panels["f32"]  # the column panel width the launch took
     want = plain(x)
     on_card(y, f"K1 at {where}")
     abs_err, rel = rel_err(y, want)
@@ -2906,12 +2926,15 @@ def k1_at_shape(adj, x, where: str, plain) -> dict:
     plain_ms = time_ms(lambda: plain(x), warmup=1, iters=3)
     library_ms, note = library_time(adj, x, y)
     b = csr_bound(n, adj.nnz, d, 4)
+    ratio = None if library_ms is None else ms / library_ms
     log(f"[13] K1 at {where} (N {n}, nnz {adj.nnz} with self-loops, D {d}, {describe_plan(adj.plan, d)}): "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse.mm {note}; bound {b['bound_ms']:.4f} ms "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse.mm {note}; kernel / torch.sparse.mm "
+        f"{'not measured' if ratio is None else f'{ratio:.4f}'}; bound {b['bound_ms']:.4f} ms "
         f"({b['bound_by']}, {b['nbytes'] / 1e9:.4f} GB), {b['bound_ms'] / ms:.4f} of it; vs the plain version "
         f"max abs {abs_err:.3e}, rel {rel:.3e}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-                nbytes=b["nbytes"], max_abs_err=abs_err, max_rel_err=rel, nnz=adj.nnz, n=n, d=d)
+                nbytes=b["nbytes"], max_abs_err=abs_err, max_rel_err=rel, nnz=adj.nnz, n=n, d=d, panel=panel,
+                library_ratio=ratio)
 
 
 def flickr_run(dev, root: str) -> dict:

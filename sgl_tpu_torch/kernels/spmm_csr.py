@@ -14,7 +14,12 @@ The kernel balances nonzeros, not rows, across warps: every row of at most
 segments of :data:`SPLIT_NNZ` consecutive nonzeros whose f32 partial sums a
 second launch adds in segment order.  The cut is a :class:`SplitPlan`,
 built once per CSR (and once per part) on its device and kept with it, so
-every hop reuses it.  The twins sum in the same order.
+every hop reuses it; where its rows are short on average it also lists
+those neither empty nor long, the only ones the accumulating form then
+walks.  Where ``x`` is far larger than the L2 cache, the one-shot product
+walks ``x`` in column panels (:func:`panel_columns`) so that what a panel
+gathers stays there.  The twins sum in the same order, which neither the
+panels nor the short rows' path change.
 
 One-shot product (``_segment_reduce_mxu``, TPU kernels K1/K2):
 
@@ -43,7 +48,9 @@ the parts buy no memory and exist to carry K3/K4 over:
 ``spmm_csr.launches`` counts products by instantiation (one first-pass
 launch each): ``"f32"``, ``"bf16"``, ``"acc_f32"``, ``"acc_bf16"``;
 ``spmm_csr.fixup_launches`` counts the second-pass launches, made only
-when the plan has a long row.  ``spmm_csr`` itself records no gradient;
+when the plan has a long row; ``spmm_csr.panels`` keeps the column
+panel width of each instantiation's last launch.  ``spmm_csr`` itself
+records no gradient;
 ``sparse.spmm`` wraps it in K1's VJP, ``dx = Aᵀ g`` on
 :func:`transposed`, the CSR of ``Aᵀ`` (:func:`transpose_csr`).
 """
@@ -71,6 +78,51 @@ _INT32_MAX = 2**31 - 1
 #: ``python -m sgl_tpu_torch.dev.tune_spmm_csr`` (``PERF.md``).
 SPLIT_NNZ = 512
 
+#: Bytes of ``x`` above which the one-shot product walks it in column
+#: panels, and the most that one panel may gather.  On the H100 (ms, no
+#: panels against panels of :data:`PANEL_BYTES`): the bench shape's f32
+#: rows (x 102 MB, a panel 51.2 MB) 0.475 against 0.421; Reddit's (561 MB,
+#: 59.6 MB) 119.2 against 77.9; Flickr's (178 MB, 22.8 MB) 0.907 against
+#: 0.542.  Where all of ``x`` about fits the 50 MB L2 (the bench shape's
+#: bf16 rows, 51.2 MB, in panels of 64 columns) panels cost 9%, and where
+#: a panel does not (products 614 MB, the graph batch 308 MB, the NARS
+#: batch's bf16 rows 160 MB) 8-19%; the NARS batch's f32 rows (319 MB a
+#: panel) gained 11% all the same, the one shape the budget misses.  Timed with ``python -m sgl_tpu_torch.dev.tune_spmm_csr
+#: --products --wide --batches`` (``PERF.md``).
+L2_BUDGET = 60 * 10**6
+#: The width of a column panel, in bytes of a row of ``x`` (at most the 32
+#: packets a warp covers in one pass).  Each panel reads the (col, val)
+#: pairs again, so narrower ones lost wherever timed (Reddit's f32 rows:
+#: 32 columns 85.3 ms, 16 columns 124.7), and wider ones too (128 columns
+#: 98.6; Flickr's f32 rows 0.564 against 0.542).  Timed with the budget.
+PANEL_BYTES = 256
+#: A plan lists its rows neither empty nor long when its non-empty rows hold
+#: at most this many nonzeros on average.  Walking the list drops the empty
+#: rows' tasks but costs each row task one more dependent load: on the H100
+#: it gained the ring's buckets (~2 nonzeros a row, a quarter of the rows
+#: empty) 9% in f32 and 2% in bf16 (1% in f32 against a walk of every row
+#: whose row loop is left rolled, ``spmm_csr.cu``) and cost the 2-D
+#: out-of-core cells (~13) 4% (``tune_spmm_csr --ring --ooc``, ``PERF.md``).
+LIST_MAX_NNZ = 8
+
+
+def _packet(d: int) -> int:
+    """The elements of the kernel's packet in a panel at width ``d``: the
+    widest of 4, 2, 1 that divides it."""
+    return next(v for v in (4, 2, 1) if d % v == 0)
+
+
+def panel_columns(n: int, d: int, elem: int) -> int:
+    """The column panel width of ``A @ x`` for ``x`` of ``n`` rows, ``d``
+    columns and ``elem`` bytes an element: the columns of
+    :data:`PANEL_BYTES` (at most the 32 packets a warp covers in one pass)
+    where ``x`` is larger than :data:`L2_BUDGET` and such a panel of it is
+    not; else ``d``, no panels: ``x`` fits, or a row fits one panel, or a
+    panel would gather from HBM all the same (products, the NARS and graph
+    batches)."""
+    cols = min(PANEL_BYTES // elem, 32 * _packet(d))
+    return cols if cols < d and n * cols * elem <= L2_BUDGET < n * d * elem else d
+
 
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
@@ -80,15 +132,19 @@ class SplitPlan:
     ``long_rows[k]`` (more than ``split``) is cut into the consecutive
     segments ``seg_ptr[k] .. seg_ptr[k+1]``; segment ``t`` covers the
     nonzeros ``[seg_beg[t], seg_end[t])``: ``split`` of them, the row's last
-    segment fewer.  All int32, on the CSR's device.  ``rowptr`` is the row
-    pointer it cuts; the wrappers refuse a plan made for another, or with
-    another ``split`` than :data:`SPLIT_NNZ`, by which the kernel cuts.
+    segment fewer.  ``rows`` lists, in order, the rows that are neither
+    empty nor long, or is empty (:data:`LIST_MAX_NNZ`): the accumulating
+    form's row tasks walk the list, when there is one, so an empty row
+    takes no task.  All int32, on the CSR's device.  ``rowptr`` is the
+    row pointer it cuts; the wrappers refuse a plan made for another, or
+    with another ``split`` than :data:`SPLIT_NNZ`, by which the kernel cuts.
     """
 
     seg_beg: torch.Tensor
     seg_end: torch.Tensor
     seg_ptr: torch.Tensor
     long_rows: torch.Tensor
+    rows: torch.Tensor
     split: int
     rowptr: torch.Tensor
 
@@ -100,19 +156,29 @@ class SplitPlan:
     def num_long(self) -> int:
         return int(self.long_rows.shape[0])
 
+    @property
+    def num_listed(self) -> int:
+        return int(self.rows.shape[0])
+
     def workspace_bytes(self, d: int) -> int:
         """Bytes of the f32 ``[segments, d]`` partial sums a product needs."""
         return 4 * self.num_segments * d
 
 
-def _make_plan(rowptr: torch.Tensor, split: int = SPLIT_NNZ) -> SplitPlan:
+def _make_plan(rowptr: torch.Tensor, split: int = SPLIT_NNZ, listed: Optional[bool] = None) -> SplitPlan:
     """The plan of ``rowptr`` for segments of ``split`` nonzeros, in plain
     torch on ``rowptr``'s device.  The port's plans are of
     :data:`SPLIT_NNZ`; ``dev/tune_spmm_csr.py`` makes others for kernels
-    built with another ``kSplitNnz``."""
+    built with another ``kSplitNnz``.  ``listed`` forces the list of rows
+    neither empty nor long on or off; by default it is made when the
+    non-empty rows hold at most :data:`LIST_MAX_NNZ` nonzeros on average."""
     r = rowptr.long()
     lengths = r[1:] - r[:-1]
     long_rows = torch.nonzero(lengths > split).flatten()
+    nonempty = lengths > 0
+    if listed is None:
+        listed = int(r[-1] - r[0]) <= LIST_MAX_NNZ * int(nonempty.sum())
+    rows = torch.nonzero(nonempty & (lengths <= split)).flatten() if listed else lengths.new_zeros(0)
     counts = (lengths[long_rows] + split - 1) // split
     seg_ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
     n_seg = int(seg_ptr[-1])
@@ -125,7 +191,7 @@ def _make_plan(rowptr: torch.Tensor, split: int = SPLIT_NNZ) -> SplitPlan:
     def i32(t):
         return t.to(torch.int32).contiguous()
 
-    return SplitPlan(i32(beg), i32(end), i32(seg_ptr), i32(long_rows), split, rowptr)
+    return SplitPlan(i32(beg), i32(end), i32(seg_ptr), i32(long_rows), i32(rows), split, rowptr)
 
 
 def _plan(csr) -> SplitPlan:
@@ -238,10 +304,10 @@ def spmm_csr_reference(adj: CsrAdj, x: torch.Tensor) -> torch.Tensor:
 
 # kernel instantiation -> (C entry point, number of int64 arguments)
 _ENTRY = {
-    "f32": ("sgl_spmm_csr_f32", 4),  # n, d, segments, long rows
-    "bf16": ("sgl_spmm_csr_bf16", 4),
-    "acc_f32": ("sgl_spmm_csr_acc_f32", 5),  # row_offset, then the same
-    "acc_bf16": ("sgl_spmm_csr_acc_bf16", 5),
+    "f32": ("sgl_spmm_csr_f32", 6),  # n, d, segments, long rows, listed rows, panel
+    "bf16": ("sgl_spmm_csr_bf16", 6),
+    "acc_f32": ("sgl_spmm_csr_acc_f32", 7),  # row_offset, then the same
+    "acc_bf16": ("sgl_spmm_csr_acc_bf16", 7),
 }
 _DTYPE_KEY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -249,7 +315,7 @@ _DTYPE_KEY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 def signatures() -> dict:
     """The C argument types of each entry point of ``spmm_csr.cu``."""
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    return {fn: [ptr] * 10 + [i64] * n_ints + [ptr] for fn, n_ints in _ENTRY.values()}
+    return {fn: [ptr] * 11 + [i64] * n_ints + [ptr] for fn, n_ints in _ENTRY.values()}
 
 
 @functools.cache
@@ -258,25 +324,40 @@ def _library() -> ctypes.CDLL:
     return _build.load_entries("spmm_csr", signatures())
 
 
-def run_passes(lib: ctypes.CDLL, key: str, plan: SplitPlan, rowptr, col, val, x, out, *ints) -> None:
+def launch_panel(key: str, x: torch.Tensor) -> int:
+    """The column panel width instantiation ``key`` takes on ``x``: the
+    one-shot forms' :func:`panel_columns`; ``D``, no panels, for the
+    accumulating forms, whose parts, cells and ring buckets all ran slower
+    with panels on the H100 (each panel reads and writes its accumulator
+    rows again; ``PERF.md``)."""
+    n, d = x.shape
+    return d if key.startswith("acc") else panel_columns(n, d, x.element_size())
+
+
+def run_passes(lib: ctypes.CDLL, key: str, plan: SplitPlan, rowptr, col, val, x, out, *ints,
+               panel: Optional[int] = None) -> int:
     """Both passes of instantiation ``key`` of ``lib`` on ``x``'s device's
     current stream into ``out``, with a workspace of its own; raise on a
     refused launch.  ``ints`` are the arguments before the plan's (``n, d``
-    or ``row_offset, n, d``).  Checks nothing and counts nothing: the
-    wrappers do."""
+    or ``row_offset, n, d``); ``panel`` is the column panel width, by
+    default :func:`launch_panel`'s.  Returns the width passed.  Checks
+    nothing and counts nothing: the wrappers do."""
+    panel = launch_panel(key, x) if panel is None else panel
     work = torch.empty((plan.num_segments, x.shape[1]), dtype=torch.float32, device=x.device)
     _build.call(
         lib, _ENTRY[key][0], x.device,
         rowptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(), out.data_ptr(),
         plan.seg_beg.data_ptr(), plan.seg_end.data_ptr(), plan.seg_ptr.data_ptr(),
-        plan.long_rows.data_ptr(), work.data_ptr(),
-        *ints, plan.num_segments, plan.num_long,
+        plan.long_rows.data_ptr(), plan.rows.data_ptr(), work.data_ptr(),
+        *ints, plan.num_segments, plan.num_long, plan.num_listed, panel,
     )
+    return panel
 
 
 def _launch(key: str, plan: SplitPlan, rowptr, col, val, x, out, *ints) -> None:
-    """:func:`run_passes` on the package's library, counted."""
-    run_passes(_library(), key, plan, rowptr, col, val, x, out, *ints)
+    """:func:`run_passes` on the package's library, counted, its panel
+    width kept."""
+    spmm_csr.panels[key] = run_passes(_library(), key, plan, rowptr, col, val, x, out, *ints)
     spmm_csr.launches[key] += 1
     if plan.num_long:
         spmm_csr.fixup_launches[key] += 1
@@ -339,6 +420,7 @@ def spmm_csr(adj: CsrAdj, x: torch.Tensor) -> torch.Tensor:
 
 spmm_csr.launches = {key: 0 for key in _ENTRY}
 spmm_csr.fixup_launches = {key: 0 for key in _ENTRY}
+spmm_csr.panels = {key: None for key in _ENTRY}
 
 
 # -- streaming: the product part by part --------------------------------------

@@ -195,7 +195,7 @@ def _unique_inverse(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 # -- the packed CSR of a part or cell -------------------------------------------
 
-_HEADER = 4  # num_rows, nnz, segments, long rows
+_HEADER = 5  # num_rows, nnz, segments, long rows, listed rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,16 +204,17 @@ class OocSubPart:
     to the card: a (dst-part, src-block) cell of the 2-D layout, and the CSR
     of a 1-D part.
 
-    ``packed`` holds the header ``[num_rows, nnz, segments, long rows]``,
-    then ``rowptr`` (``num_rows + 1``, local), ``col``, ``val``'s float32
-    bits, and the plan's ``seg_beg``, ``seg_end``, ``seg_ptr`` and
-    ``long_rows``.  It may be a read-only memmap (a cached layout).
+    ``packed`` holds the header ``[num_rows, nnz, segments, long rows,
+    listed rows]``, then ``rowptr`` (``num_rows + 1``, local), ``col``,
+    ``val``'s float32 bits, and the plan's ``seg_beg``, ``seg_end``,
+    ``seg_ptr``, ``long_rows`` and ``rows`` (the rows neither empty nor
+    long).  It may be a read-only memmap (a cached layout).
     """
 
     packed: np.ndarray
 
     @property
-    def counts(self) -> Tuple[int, int, int, int]:
+    def counts(self) -> Tuple[int, int, int, int, int]:
         return tuple(int(v) for v in self.packed[:_HEADER])
 
     @property
@@ -233,14 +234,16 @@ def _pack(rowptr: np.ndarray, col: np.ndarray, val: np.ndarray, plan: Optional[S
     rowptr = np.ascontiguousarray(rowptr, np.int32)
     if plan is None:
         plan = _make_plan(torch.from_numpy(rowptr))
-    arrays = [plan.seg_beg, plan.seg_end, plan.seg_ptr, plan.long_rows]
-    seg_beg, seg_end, seg_ptr, long_rows = (np.asarray(t.numpy(), np.int32) for t in arrays)
-    header = np.array([rowptr.shape[0] - 1, col.shape[0], seg_beg.shape[0], long_rows.shape[0]], np.int64)
+    arrays = [plan.seg_beg, plan.seg_end, plan.seg_ptr, plan.long_rows, plan.rows]
+    seg_beg, seg_end, seg_ptr, long_rows, listed = (np.asarray(t.numpy(), np.int32) for t in arrays)
+    header = np.array([rowptr.shape[0] - 1, col.shape[0], seg_beg.shape[0], long_rows.shape[0],
+                       listed.shape[0]], np.int64)
     if header.max() >= 2**31:
         raise ValueError(f"a part of {header[1]} nonzeros overflows the kernel's int32 indices")
     return OocSubPart(np.concatenate([
         header.astype(np.int32), rowptr, np.asarray(col, np.int32),
         np.ascontiguousarray(val, np.float32).view(np.int32), seg_beg, seg_end, seg_ptr, long_rows,
+        listed,
     ]))
 
 
@@ -250,14 +253,14 @@ def _empty_cell() -> OocSubPart:
 
 def _views(packed: torch.Tensor, counts, num_nodes: int, row_offset: int) -> CsrPart:
     """The ``CsrPart`` (with its plan) over ``packed``'s views, on its device."""
-    rows, nnz, n_seg, n_long = counts
-    sizes = (rows + 1, nnz, nnz, n_seg, n_seg, n_long + 1, n_long)
+    rows, nnz, n_seg, n_long, n_listed = counts
+    sizes = (rows + 1, nnz, nnz, n_seg, n_seg, n_long + 1, n_long, n_listed)
     views, o = [], _HEADER
     for size in sizes:
         views.append(packed[o:o + size])
         o += size
-    rowptr, col, val, seg_beg, seg_end, seg_ptr, long_rows = views
-    plan = SplitPlan(seg_beg, seg_end, seg_ptr, long_rows, SPLIT_NNZ, rowptr)
+    rowptr, col, val, seg_beg, seg_end, seg_ptr, long_rows, listed = views
+    plan = SplitPlan(seg_beg, seg_end, seg_ptr, long_rows, listed, SPLIT_NNZ, rowptr)
     return CsrPart(rowptr, col, val.view(torch.float32), row_offset, rows, num_nodes, plan)
 
 
@@ -860,7 +863,7 @@ def _layout_cache_path(cache_dir, src, dst, w, n, max_edges_per_part, src_blocks
     parameter, so a changed graph or configuration never aliases; the
     port's own prefix and key, so it never reads ``sgl_tpu``'s caches."""
     h = hashlib.sha1()
-    h.update(f"sgl_tpu_torch-v1|{n}|{max_edges_per_part}|{src_blocks}|{split_diag}|{src.shape[0]}".encode())
+    h.update(f"sgl_tpu_torch-v2|{n}|{max_edges_per_part}|{src_blocks}|{split_diag}|{src.shape[0]}".encode())
     for a in (src, dst, w):
         h.update(np.ascontiguousarray(a).tobytes())
     return os.path.join(str(cache_dir), _CACHE_PREFIX + h.hexdigest())

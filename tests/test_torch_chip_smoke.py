@@ -105,7 +105,8 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
             for k in ("f32", "bf16")}
     dist = dict(work=work, ring_launches={"f32": {"gloo (1, 2) GAMLP f32": [[6, 3], [6, 3]]},
                                           "bf16": {"gloo (1, 2) SGC bf16": [[6, 3], [6, 3]]}})
-    shape = dict(probe, n=10, nnz=40, d=602, launches=5, max_abs_err=0.0, max_rel_err=0.0, write_s=9.0)
+    shape = dict(probe, n=10, nnz=40, d=602, launches=5, max_abs_err=0.0, max_rel_err=0.0, write_s=9.0, panel=32,
+                 library_ratio=0.5)
     loaders = dict(launches=77, reddit=dict(shape), flickr=dict(shape, d=500, max_rel_err=0.125))
     plot = dict(launches=3, fixup_launches=0)
     line = kernels_line(two, {"f32": 3, "bf16": 3}, {"f32": (0, 0, 0), "bf16": (0, 0, 0)}, two, products,
@@ -117,6 +118,7 @@ def test_kernels_line_lists_every_instantiation_with_every_key():
     # phase 13's on K1 alone: the loaders' launches, K1 at Reddit's and Flickr's shapes
     assert kernels[0]["loader_launches"] == 77 and "loader_launches" not in kernels[1]
     assert kernels[0]["shapes"]["reddit"]["d"] == 602 and kernels[0]["shapes"]["flickr"]["d"] == 500
+    assert kernels[0]["shapes"]["reddit"]["panel"] == 32 and kernels[0]["shapes"]["reddit"]["library_ratio"] == 0.5
     assert "write_s" not in kernels[0]["shapes"]["reddit"] and kernels[0]["max_rel_err"] == 0.125
     # phase 12's on K3 and K4: each run's ring launches a rank, and the bucket work
     assert kernels[2]["ring_launches"] == {"gloo (1, 2) GAMLP f32": [[6, 3], [6, 3]]}

@@ -307,6 +307,119 @@ def test_spmm_csr_rejects_a_plan_of_another_split_length(cuda):
                          torch.zeros(adj.num_nodes, 8, device=cuda))
 
 
+# -- column panels and the short rows' path ------------------------------------
+
+
+def _mixed_csr(cuda, n=6000, short=8, seed=0):
+    """A CSR built by hand with empty rows (every 5th), short rows (1 to
+    ``short`` nonzeros), medium rows (9 to 199, every 41st) and rows cut
+    into segments (SPLIT_NNZ + 1, 3·SPLIT_NNZ + 5, 20,000 nonzeros)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, short + 1, n)
+    lengths[3::41] = rng.integers(9, 200, lengths[3::41].shape[0])
+    lengths[::5] = 0
+    lengths[[7, 8, 2001]] = [SPLIT_NNZ + 1, 3 * SPLIT_NNZ + 5, 20_000]
+    rowptr = np.concatenate([[0], np.cumsum(lengths)])
+    e = int(rowptr[-1])
+    return CsrAdj(
+        torch.as_tensor(rowptr, dtype=torch.int32, device=cuda),
+        torch.as_tensor(rng.integers(0, n, e), dtype=torch.int32, device=cuda),
+        torch.as_tensor(rng.random(e) + 0.5, dtype=torch.float32, device=cuda),
+        n,
+    )
+
+
+def _one_shot(adj, x, panel):
+    from sgl_tpu_torch.kernels.spmm_csr import _library, _plan, run_passes
+
+    y = torch.empty_like(x)
+    run_passes(_library(), KEYS[x.dtype], _plan(adj), adj.rowptr, adj.col, adj.val, x, y, adj.num_nodes,
+               x.shape[1], panel=panel)
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d, panels", [(42, (8, 16, 32)), (100, (16, 32, 64)), (500, (32, 64, 128))],
+                         ids=["d42", "d100", "d500"])
+def test_spmm_csr_panels_match_plain(cuda, dtype, d, panels):
+    # forced panels at small N: D = 42 has D % 4 = 2, as Reddit's 602 has
+    adj = _mixed_csr(cuda)
+    x = _features(cuda, adj.num_nodes, d, dtype)
+    whole = _one_shot(adj, x, d)
+    want = spmm_csr_reference(adj, x)
+    assert adj.plan.num_long == 3
+    for panel in panels:
+        got = _one_shot(adj, x, panel)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+        assert err <= TOL[dtype], (panel, err)
+        assert torch.equal(got, _one_shot(adj, x, panel))  # two runs, the same bits
+        # each element summed in the same order with or without panels
+        assert torch.equal(got, whole), panel
+        assert not got[torch.diff(adj.rowptr) == 0].any()  # empty rows written as zeros
+
+
+def test_spmm_csr_takes_the_rules_panels(cuda):
+    # a graph whose x is larger than the L2 budget goes through the panels
+    from sgl_tpu_torch.kernels.spmm_csr import L2_BUDGET, panel_columns
+
+    n, d = 60_000, 602
+    assert panel_columns(n, d, 4) < d and n * d * 4 > L2_BUDGET
+    adj = prepare_csr(symmetric_normalized_weights(random_power_law_graph(n, 6, 4, seed=1), device=cuda))
+    x = _features(cuda, n, d, torch.float32)
+    before = spmm_csr.launches["f32"]
+    got = spmm_csr(adj, x)
+    assert spmm_csr.launches["f32"] == before + 1 and spmm_csr.panels["f32"] == panel_columns(n, d, 4)
+    assert torch.equal(got, _one_shot(adj, x, d))
+    want = spmm_csr_reference(adj, x)
+    assert (got - want).abs().max().item() <= TOL[torch.float32] * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [100, 42, 256])
+def test_spmm_csr_acc_short_rows_match_plain(cuda, dtype, d):
+    # the ring's buckets: one to three nonzeros a row, a fifth of the rows
+    # empty; every part's empty rows keep the accumulator's bits
+    adj = _mixed_csr(cuda, n=20_000, short=3)
+    parts = prepare_csr_parts(adj, -(-adj.nnz // 3))
+    x = _features(cuda, adj.num_nodes, d, dtype)
+    key = "acc_" + KEYS[dtype]
+    acc0 = torch.randn(adj.num_nodes, d, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    for part in parts:
+        lengths = torch.diff(part.rowptr.long())
+        listed = torch.nonzero((lengths > 0) & (lengths <= SPLIT_NNZ)).flatten()
+        # the plan lists its rows where they are short on average
+        assert torch.equal(part.plan.rows.long(), listed) or part.plan.num_listed == 0
+        before, fixups = spmm_csr.launches[key], spmm_csr.fixup_launches[key]
+        got = spmm_csr_acc(part, x, acc0.clone())
+        assert spmm_csr.launches[key] == before + 1
+        assert spmm_csr.fixup_launches[key] == fixups + (part.plan.num_long > 0)
+        want = spmm_csr_acc_reference(part, x, acc0.clone())
+        torch.cuda.synchronize()
+        touched = torch.zeros(adj.num_nodes, dtype=torch.bool, device=cuda)
+        touched[part.row_offset: part.row_offset + part.num_rows] = lengths > 0
+        assert torch.equal(got[~touched], acc0[~touched])
+        err = (got[touched] - want[touched]).abs().max().item() / want[touched].abs().max().item()
+        assert err <= 1e-5, (int(part.row_offset), err)
+        assert torch.equal(got, spmm_csr_acc(part, x, acc0.clone()))
+
+
+def test_spmm_csr_acc_part_without_listed_rows(cuda):
+    # every row empty: one launch of one idle block, the accumulator unchanged
+    from sgl_tpu_torch.kernels.spmm_csr import CsrPart
+
+    n = 1000
+    part = CsrPart(torch.zeros(n + 1, dtype=torch.int32, device=cuda), torch.zeros(0, dtype=torch.int32, device=cuda),
+                   torch.zeros(0, dtype=torch.float32, device=cuda), 0, n, n)
+    x = _features(cuda, n, 64, torch.float32)
+    acc = torch.randn(n, 64, device=cuda)
+    before = spmm_csr.launches["acc_f32"]
+    got = spmm_csr_acc(part, x, acc.clone())
+    torch.cuda.synchronize()
+    assert part.plan.num_listed == 0 and spmm_csr.launches["acc_f32"] == before + 1
+    assert torch.equal(got, acc)
+
+
 # -- the segment reduce (dev/ kernels D2-D6) and the gather sum (D1) ----------
 
 

@@ -20,7 +20,7 @@ from sgl_tpu_torch.dev.tune_spmm_csr import VARIANTS, source_constants, variant_
 from sgl_tpu_torch.dev.tune_spmm_csr import main as tune_main
 from sgl_tpu_torch.graph import symmetric_normalized_weights
 from sgl_tpu_torch.kernels import CsrAdj, SparseAdj, prepare_csr, spmm, spmm_csr, spmm_csr_reference, spmm_segment
-from sgl_tpu_torch.kernels.spmm_csr import SPLIT_NNZ, _make_plan
+from sgl_tpu_torch.kernels.spmm_csr import LIST_MAX_NNZ, SPLIT_NNZ, _make_plan
 from sgl_tpu_torch.ops import LaplacianGraphOp, k_hop_aggregate, k_hop_propagate
 from tests.conftest import random_graph
 from tests.test_torch_graph import to_port_graph
@@ -177,7 +177,12 @@ def check_plan_covers_rows(rowptr: torch.Tensor, plan) -> None:
     lengths = r[1:] - r[:-1]
     assert plan.split == L and plan.rowptr is rowptr
     assert torch.equal(plan.long_rows.long(), torch.nonzero(lengths > L).flatten())
-    for t in (plan.seg_beg, plan.seg_end, plan.seg_ptr, plan.long_rows):
+    # the accumulating form's row tasks walk the rows neither empty nor long,
+    # listed where the non-empty rows are short on average
+    listed = torch.nonzero((lengths > 0) & (lengths <= L)).flatten()
+    short = int(r[-1]) <= LIST_MAX_NNZ * int((lengths > 0).sum())
+    assert torch.equal(plan.rows.long(), listed if short else listed[:0])
+    for t in (plan.seg_beg, plan.seg_end, plan.seg_ptr, plan.long_rows, plan.rows):
         assert t.dtype == torch.int32 and t.is_contiguous()
     covered = torch.zeros(int(r[-1]), dtype=torch.int64)
     for row in torch.nonzero(lengths <= L).flatten().tolist():
