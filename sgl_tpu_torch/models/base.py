@@ -25,6 +25,7 @@ from sgl_tpu_torch.graph.graph import Graph
 from sgl_tpu_torch.models.blocks import init_params
 from sgl_tpu_torch.ops.graph_ops import GraphOp
 from sgl_tpu_torch.ops.message_ops import LEARNABLE_AGGR_TYPES, MessageOp
+from sgl_tpu_torch.utils.profiling import span
 
 
 class SGAPNet(nn.Module):
@@ -104,43 +105,44 @@ class SGAPModel:
         :attr:`preprocess_time_estimate` (amortized seconds, for the NAS
         time objective).  The cache is keyed on the ``x`` object passed
         here, before any conversion."""
-        if hasattr(self.processed_feature, "rows"):
-            return
-        if x is None:
-            x = graph.x
-        if prop_cache is not None and self.pre_graph_op is not None:
-            hops, est = prop_cache.hops_for(graph, x, self.pre_graph_op, dtype=dtype, device=device)
-            self.preprocess_time_estimate = est
+        with span("sgl.precompute", stream=True):
+            if hasattr(self.processed_feature, "rows"):
+                return
+            if x is None:
+                x = graph.x
+            if prop_cache is not None and self.pre_graph_op is not None:
+                hops, est = prop_cache.hops_for(graph, x, self.pre_graph_op, dtype=dtype, device=device)
+                self.preprocess_time_estimate = est
+                if self.pre_msg_learnable:
+                    self.processed_feature = hops.movedim(0, 1).contiguous() if self.node_major else hops
+                else:
+                    # the stack is in the cache already, so the fused
+                    # propagate_aggregate saves nothing: aggregate it eagerly
+                    self.processed_feature = eager_aggregate(self.pre_msg_op, hops)
+                return
+            x = torch.as_tensor(x)
+            if dtype is not None:
+                x = x.to(dtype)
+            if self.pre_graph_op is None:
+                self.pre_msg_learnable = False
+                self.processed_feature = x.to(resolve_device(device), dtype or torch.float32)
+                return
             if self.pre_msg_learnable:
-                self.processed_feature = hops.movedim(0, 1).contiguous() if self.node_major else hops
+                hops = self.pre_graph_op.propagate(graph, x, device=device)
+                if self.node_major:
+                    hops = hops.movedim(0, 1).contiguous()  # one-time (N, K+1, D)
+                self.processed_feature = hops
+                return
+            # linear aggregations fuse into the propagation loop: peak memory
+            # O(N·D) instead of O((K+1)·N·D)
+            w = self.pre_msg_op.linear_weights(self.pre_graph_op.prop_steps + 1)
+            if w is not None:
+                self.processed_feature = self.pre_graph_op.propagate_aggregate(
+                    graph, x, w, device=device
+                )
             else:
-                # the stack is in the cache already, so the fused
-                # propagate_aggregate saves nothing: aggregate it eagerly
+                hops = self.pre_graph_op.propagate(graph, x, device=device)
                 self.processed_feature = eager_aggregate(self.pre_msg_op, hops)
-            return
-        x = torch.as_tensor(x)
-        if dtype is not None:
-            x = x.to(dtype)
-        if self.pre_graph_op is None:
-            self.pre_msg_learnable = False
-            self.processed_feature = x.to(resolve_device(device), dtype or torch.float32)
-            return
-        if self.pre_msg_learnable:
-            hops = self.pre_graph_op.propagate(graph, x, device=device)
-            if self.node_major:
-                hops = hops.movedim(0, 1).contiguous()  # one-time (N, K+1, D)
-            self.processed_feature = hops
-            return
-        # linear aggregations fuse into the propagation loop: peak memory
-        # O(N·D) instead of O((K+1)·N·D)
-        w = self.pre_msg_op.linear_weights(self.pre_graph_op.prop_steps + 1)
-        if w is not None:
-            self.processed_feature = self.pre_graph_op.propagate_aggregate(
-                graph, x, w, device=device
-            )
-        else:
-            hops = self.pre_graph_op.propagate(graph, x, device=device)
-            self.processed_feature = eager_aggregate(self.pre_msg_op, hops)
 
     def attach_host_hops(self, host_hops) -> None:
         """Use a host-resident hop store (``utils.hop_store.HostHops``, e.g.

@@ -31,6 +31,7 @@ from sgl_tpu_torch.kernels.spmm_ooc import (
     prepare_out_of_core,
     prepare_out_of_core_2d,
 )
+from sgl_tpu_torch.utils.profiling import span
 
 
 @torch.no_grad()
@@ -40,8 +41,9 @@ def k_hop_propagate(adj, x: torch.Tensor, prop_steps: int) -> torch.Tensor:
     out[0] = x
     h = x
     for k in range(1, prop_steps + 1):
-        h = spmm(adj, h)
-        out[k] = h
+        with span("sgl.graph_op.hop", stream=True, k=k):
+            h = spmm(adj, h)
+            out[k] = h
     return out
 
 
@@ -55,18 +57,20 @@ def k_hop_aggregate(adj, x: torch.Tensor, weights, prop_steps: int) -> torch.Ten
     acc = w[0] * x.float()
     h = x
     for k in range(1, prop_steps + 1):
-        h = spmm(adj, h)
-        acc += w[k] * h.float()
+        with span("sgl.graph_op.hop", stream=True, k=k):
+            h = spmm(adj, h)
+            acc += w[k] * h.float()
     return acc.to(x.dtype)
 
 
 def _as_compute_dtype(x, device: torch.device) -> torch.Tensor:
     """f32 by default; bf16 passes through (the opt-in bf16 precompute —
     the CSR kernel has a bf16 variant)."""
-    x = torch.as_tensor(x, device=device)
-    if x.dtype == torch.bfloat16:
-        return x.contiguous()
-    return x.to(torch.float32).contiguous()
+    with span("sgl.graph_op.features", stream=True):
+        x = torch.as_tensor(x, device=device)
+        if x.dtype == torch.bfloat16:
+            return x.contiguous()
+        return x.to(torch.float32).contiguous()
 
 
 class GraphOp:
@@ -90,11 +94,14 @@ class GraphOp:
         cache: repeated propagation over one graph (preprocess, then
         postprocess) builds the layout once."""
         ref, cached_device, cached = self._adj_cache
-        if ref is not None and ref() is graph and cached_device == device:
-            return cached
-        adj = prepare_csr(self.construct_adj(graph, device))
-        self._adj_cache = (weakref.ref(graph), device, adj)
-        return adj
+        hit = ref is not None and ref() is graph and cached_device == device
+        with span("sgl.graph_op.adjacency", hit=hit):
+            if hit:
+                return cached
+            with span("sgl.graph_op.build", stream=True):
+                adj = prepare_csr(self.construct_adj(graph, device))
+            self._adj_cache = (weakref.ref(graph), device, adj)
+            return adj
 
     def clear_cache(self) -> None:
         """Drop the cached adjacency, and the device memory it holds."""

@@ -28,11 +28,29 @@ from sgl_tpu_torch.tasks.utils import (
     weighted_cross_entropy,
 )
 from sgl_tpu_torch.utils.config import TrainConfig
+from sgl_tpu_torch.utils.profiling import count, span
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _batches(idx, batch_size: Optional[int], shuffle: bool, rng, device: torch.device):
+    """The batches of ``batch_iterator`` with their indices and weights on
+    ``device``: yields ``(indices, weights, host weights)``, each batch
+    prepared inside a ``sgl.task.batch`` span.  Each upload copies from
+    pageable host memory, which blocks the host until the card's stream
+    has drained: a host sync."""
+    n = len(idx)
+    batches = batch_iterator(idx, batch_size, shuffle=shuffle, rng=rng)
+    # one span a batch that batch_iterator yields: none around its exhaustion
+    for _ in range(1 if batch_size is None or batch_size >= n else -(-n // batch_size)):
+        with span("sgl.task.batch"):
+            b_idx, w = next(batches)
+            b, w_dev = torch.as_tensor(b_idx, device=device), torch.as_tensor(w, device=device)
+            count("sgl.task.host_sync", 2, kind="upload")
+        yield b, w_dev, w
 
 
 class NodeClassification(BaseTask):
@@ -76,7 +94,8 @@ class NodeClassification(BaseTask):
         self.epoch_seconds: List[float] = []
         #: each epoch's mean training loss (weighted by the batches' rows)
         self.train_losses: List[float] = []
-        self._test_acc = self._execute()
+        with span("sgl.task.job"):
+            self._test_acc = self._execute()
 
     @property
     def test_acc(self) -> float:
@@ -111,48 +130,50 @@ class NodeClassification(BaseTask):
         train_step = make_train_step(net, optimizer, self._loss_fn)
         eval_step = make_eval_step(net)
 
-        def on_device(a):
-            return torch.as_tensor(a, device=device)
-
         def eval_on(idx):
             correct, total = 0.0, 0.0
-            for b_idx, w in batch_iterator(idx, self._eval_batch_size, shuffle=False, rng=np_rng):
-                b = on_device(b_idx)
-                c, t = eval_step(model.batch_input(b), labels[b], on_device(w))
+            for b, w_dev, _ in _batches(idx, self._eval_batch_size, False, np_rng, device):
+                c, t = eval_step(model.batch_input(b), labels[b], w_dev)
                 correct += float(c)
                 total += float(t)
+                count("sgl.task.host_sync", 2, kind="read")
             return correct / max(total, 1.0)
 
         best_val, best_test = 0.0, 0.0
         t_total = time.perf_counter()
         for epoch in range(self._epochs):
-            t = time.perf_counter()
-            losses, accs, weights = [], [], []
-            for b_idx, w in batch_iterator(
-                train_idx, self._train_batch_size, shuffle=True, rng=np_rng
-            ):
-                b = on_device(b_idx)
-                loss, acc = train_step(model.batch_input(b), labels[b], on_device(w), dropout_gen)
-                losses.append(float(loss))  # waits for the step to finish
-                accs.append(float(acc))
-                weights.append(float(w.sum()))
-            self.epoch_seconds.append(time.perf_counter() - t)
-            loss_train = float(np.average(losses, weights=weights))
-            self.train_losses.append(loss_train)
-            acc_train = float(np.average(accs, weights=weights))
-            acc_val = eval_on(val_idx)
-            acc_test = eval_on(test_idx)
-            if self._verbose:
-                print(
-                    f"Epoch: {epoch + 1:03d} loss_train: {loss_train:.4f} "
-                    f"acc_train: {acc_train:.4f} acc_val: {acc_val:.4f} "
-                    f"acc_test: {acc_test:.4f} time: {time.perf_counter() - t:.4f}s"
-                )
-            if acc_val > best_val:
-                best_val, best_test = acc_val, acc_test
-                self._on_best(net)
+            with span("sgl.task.epoch"):
+                with span("sgl.task.train") as train_span:
+                    t = time.perf_counter_ns()
+                    losses, accs, weights = [], [], []
+                    for b, w_dev, w in _batches(train_idx, self._train_batch_size, True, np_rng, device):
+                        loss, acc = train_step(model.batch_input(b), labels[b], w_dev, dropout_gen)
+                        losses.append(float(loss))  # waits for the step to finish
+                        accs.append(float(acc))
+                        count("sgl.task.host_sync", 2, kind="read")
+                        weights.append(float(w.sum()))
+                    t_end = time.perf_counter_ns()
+                self.epoch_seconds.append((t_end - t) / 1e9)
+                if train_span is not None:  # the span times what epoch_seconds does, on its clock reads
+                    train_span["start_ns"], train_span["end_ns"] = t, t_end
+                loss_train = float(np.average(losses, weights=weights))
+                self.train_losses.append(loss_train)
+                acc_train = float(np.average(accs, weights=weights))
+                with span("sgl.task.eval"):
+                    acc_val = eval_on(val_idx)
+                    acc_test = eval_on(test_idx)
+                if self._verbose:
+                    print(
+                        f"Epoch: {epoch + 1:03d} loss_train: {loss_train:.4f} "
+                        f"acc_train: {acc_train:.4f} acc_val: {acc_val:.4f} "
+                        f"acc_test: {acc_test:.4f} time: {(time.perf_counter_ns() - t) / 1e9:.4f}s"
+                    )
+                if acc_val > best_val:
+                    best_val, best_test = acc_val, acc_test
+                    self._on_best(net)
 
-        acc_val, acc_test = self._postprocess(net, labels, val_idx, test_idx)
+        with span("sgl.task.postprocess"):
+            acc_val, acc_test = self._postprocess(net, labels, val_idx, test_idx)
         if acc_val > best_val:
             best_val, best_test = acc_val, acc_test
 

@@ -1,5 +1,6 @@
 """Utilities of the port: the training config, the host hop store,
-checkpoints, timing and tracing, the device chooser, and the raster figure
+checkpoints, timing and tracing (the program's spans and counters among
+them), the device chooser, and the raster figure
 of the clustering plots.  ``sgl_tpu``'s
 ``utils/compile_cache.py`` is XLA's persistent compilation cache and has no
 counterpart here: PyTorch compiles nothing of the port's path, and the
@@ -21,4 +22,14 @@ from sgl_tpu_torch.utils.device import (  # noqa: F401
 )
 from sgl_tpu_torch.utils.figure import Figure, read_png, write_png  # noqa: F401
 from sgl_tpu_torch.utils.hop_store import HostHops, MemmapHopSink  # noqa: F401
-from sgl_tpu_torch.utils.profiling import StageTimer, slope_time, sync, torch_trace  # noqa: F401
+from sgl_tpu_torch.utils.profiling import (  # noqa: F401
+    StageTimer,
+    clear_spans,
+    count,
+    recording,
+    slope_time,
+    span,
+    spans,
+    sync,
+    torch_trace,
+)
