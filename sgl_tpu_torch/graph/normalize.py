@@ -24,6 +24,7 @@ from sgl_tpu_torch.device import resolve_device
 from sgl_tpu_torch.graph import native
 from sgl_tpu_torch.graph.graph import Graph
 from sgl_tpu_torch.kernels.sparse import SparseAdj
+from sgl_tpu_torch.utils.transfer import to_device
 
 
 def _safe_pow(deg: torch.Tensor, p: float) -> torch.Tensor:
@@ -37,10 +38,10 @@ def _with_self_loops(graph: Graph, device: torch.device):
     row degrees of ``Â``."""
     n = graph.num_nodes
     loop = torch.arange(n, dtype=torch.int32, device=device)
-    src = torch.cat([torch.as_tensor(graph.src, device=device), loop])
-    dst = torch.cat([torch.as_tensor(graph.dst, device=device), loop])
+    src = torch.cat([to_device(graph.src, device), loop])
+    dst = torch.cat([to_device(graph.dst, device), loop])
     val = torch.cat(
-        [torch.as_tensor(graph.val, device=device), torch.ones(n, device=device)]
+        [to_device(graph.val, device), torch.ones(n, device=device)]
     )
     deg = torch.zeros(n, device=device).index_add_(0, src.long(), val)
     return src, dst, val, deg
@@ -125,9 +126,9 @@ def row_normalized_weights(
     if add_self_loops:
         src, dst, val, _ = _with_self_loops(graph, device)
     else:
-        src = torch.as_tensor(graph.src, device=device)
-        dst = torch.as_tensor(graph.dst, device=device)
-        val = torch.as_tensor(graph.val, device=device)
+        src = to_device(graph.src, device)
+        dst = to_device(graph.dst, device)
+        val = to_device(graph.val, device)
     deg_in = torch.zeros(graph.num_nodes, device=device).index_add_(0, dst.long(), val)
     w = val * _safe_pow(deg_in, -1.0)[dst.long()]
     return _sorted_adj(src, dst, w, graph.num_nodes, sort)

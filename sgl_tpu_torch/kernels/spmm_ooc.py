@@ -284,35 +284,48 @@ def _upload(sub: OocSubPart, device: torch.device, num_nodes: int, row_offset: i
 
 
 class PinnedRing:
-    """Pinned host buffers used in turn (two by default), for one copy
-    direction.
+    """Host buffers used in turn (two by default), for one copy direction.
 
-    :meth:`take` hands out the next slot as a tensor of the asked shape,
-    after waiting for the event of the copy that used the slot last, so the
-    host never rewrites memory a host-to-device copy still reads, nor hands
-    out memory a device-to-host copy still writes; :meth:`release` records
-    that event on the stream of the copy.  A slot grows when a larger shape
-    is asked for.  Needs CUDA: pinning that fails raises.
+    :meth:`take` hands out the next slot as a tensor of the asked shape and
+    dtype, after waiting for the event of the copy that used the slot last,
+    so the host never rewrites memory a host-to-device copy still reads, nor
+    hands out memory a device-to-host copy still writes; :meth:`release`
+    records that event on the stream of the copy.  A slot holds bytes, so
+    one dtype after another reuses it; it is at least ``slot_bytes`` and
+    grows when a larger shape is asked for.  ``pin=False`` gives plain host
+    memory (the CPU runs); pinning needs CUDA and raises without it.
     """
 
-    def __init__(self, slots: int = 2):
+    def __init__(self, slots: int = 2, slot_bytes: int = 0, pin: bool = True):
+        self.slot_bytes = slot_bytes
+        self.pin = pin
         self._bufs: List[Optional[torch.Tensor]] = [None] * slots
         self._events: List[Optional[torch.cuda.Event]] = [None] * slots
         self._next = 0
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes the slots hold."""
+        return sum(b.numel() for b in self._bufs if b is not None)
 
     def take(self, shape, dtype: torch.dtype) -> Tuple[torch.Tensor, int]:
         k = self._next
         self._next = (k + 1) % len(self._bufs)
         self.wait(k)
-        need = int(np.prod(shape))
+        need = int(np.prod(shape)) * dtype.itemsize
         buf = self._bufs[k]
-        if buf is None or buf.numel() < need or buf.dtype != dtype:
-            buf = self._bufs[k] = torch.empty(max(need, 1), dtype=dtype, pin_memory=True)
-        return buf[:need].view(shape), k
+        if buf is None or buf.numel() < need:
+            buf = self._bufs[k] = torch.empty(max(need, self.slot_bytes, 1), dtype=torch.uint8,
+                                              pin_memory=self.pin)
+        return buf[:need].view(dtype).view(shape), k
 
     def release(self, k: int, stream) -> None:
-        ev = torch.cuda.Event()
-        ev.record(stream)
+        """The copy that uses slot ``k`` has been issued on ``stream`` (None:
+        it has completed, as a copy on the CPU has)."""
+        ev = None
+        if stream is not None:
+            ev = torch.cuda.Event()
+            ev.record(stream)
         self._events[k] = ev
 
     def wait(self, k: int) -> None:

@@ -26,6 +26,7 @@ from sgl_tpu_torch.models.blocks import init_params
 from sgl_tpu_torch.ops.graph_ops import GraphOp
 from sgl_tpu_torch.ops.message_ops import LEARNABLE_AGGR_TYPES, MessageOp
 from sgl_tpu_torch.utils.profiling import span
+from sgl_tpu_torch.utils.transfer import to_device
 
 
 class SGAPNet(nn.Module):
@@ -125,7 +126,7 @@ class SGAPModel:
                 x = x.to(dtype)
             if self.pre_graph_op is None:
                 self.pre_msg_learnable = False
-                self.processed_feature = x.to(resolve_device(device), dtype or torch.float32)
+                self.processed_feature = to_device(x, resolve_device(device), dtype or torch.float32)
                 return
             if self.pre_msg_learnable:
                 hops = self.pre_graph_op.propagate(graph, x, device=device)

@@ -32,6 +32,7 @@ from sgl_tpu_torch.kernels.spmm_ooc import (
     prepare_out_of_core_2d,
 )
 from sgl_tpu_torch.utils.profiling import span
+from sgl_tpu_torch.utils.transfer import to_device
 
 
 @torch.no_grad()
@@ -67,7 +68,7 @@ def _as_compute_dtype(x, device: torch.device) -> torch.Tensor:
     """f32 by default; bf16 passes through (the opt-in bf16 precompute —
     the CSR kernel has a bf16 variant)."""
     with span("sgl.graph_op.features", stream=True):
-        x = torch.as_tensor(x, device=device)
+        x = to_device(x, device)
         if x.dtype == torch.bfloat16:
             return x.contiguous()
         return x.to(torch.float32).contiguous()

@@ -1002,3 +1002,105 @@ def test_tsne_on_the_card_matches_the_cpu(cuda):
     assert (cpu["val"] - card["val"]).abs().max().item() <= 1e-6
     assert ((cpu["grad"] - card["grad"]).abs().max() / cpu["grad"].abs().max()).item() <= 1e-5
     assert ((cpu["y5"] - card["y5"]).abs().max() / cpu["y5"].abs().max()).item() <= 1e-4
+
+
+# -- the staged host-to-card upload (utils/transfer.py) ------------------------
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return (got.dtype == want.dtype and got.shape == want.shape and got.device == want.device
+            and torch.equal(got.contiguous().view(-1).view(torch.uint8), want.contiguous().view(-1).view(torch.uint8)))
+
+
+def _counted(fn):
+    """``fn()``'s result and the counts it made, summed over the spans it
+    opened and the one around it."""
+    from sgl_tpu_torch.utils import profiling
+
+    profiling.clear_spans()
+    with profiling.recording(), profiling.span("test.upload"):
+        out = fn()
+    counts = {}
+    for r in profiling.spans():
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    return out, counts
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.float64])
+def test_staged_upload_on_the_card_is_as_tensor(cuda, dtype, tmp_path):
+    """3.5 slots and one element, as a numpy array, a CPU tensor and a
+    read-only 2-D memmap, each the bits of ``torch.as_tensor``; a small
+    array and a pinned tensor keep the direct copy."""
+    from sgl_tpu_torch.utils import transfer
+
+    n = int(3.5 * transfer.SLOT_BYTES) // np.dtype(dtype).itemsize + 1
+    a = (np.random.default_rng(0).standard_normal(n) * 1e6).astype(dtype)
+    np.save(tmp_path / "a.npy", a[: n - 1].reshape(-1, 8))
+    memmap = np.load(tmp_path / "a.npy", mmap_mode="r")
+    for x in (a, torch.from_numpy(a), memmap):
+        got, counts = _counted(lambda: transfer.to_device(x, cuda))
+        assert _same_bits(got, torch.as_tensor(np.asarray(x), device=cuda))
+        assert counts == {"sgl.h2d_bytes": got.nbytes, "sgl.h2d_bytes[kind=staged]": got.nbytes}
+    pinned = torch.from_numpy(a).pin_memory()
+    for x in (a[:1000], pinned):
+        got, counts = _counted(lambda: transfer.to_device(x, cuda))
+        assert _same_bits(got, torch.as_tensor(x, device=cuda))
+        assert counts == {"sgl.h2d_bytes": got.nbytes, "sgl.h2d_bytes[kind=direct]": got.nbytes}
+    on_card = torch.as_tensor(a, device=cuda)
+    got, counts = _counted(lambda: transfer.to_device(on_card, cuda))
+    assert got is on_card and counts == {}
+
+
+def test_overwriting_the_host_array_after_the_upload_returns_changes_nothing(cuda):
+    from sgl_tpu_torch.utils import transfer
+
+    a = np.arange(int(3.5 * transfer.SLOT_BYTES) // 4, dtype=np.int32)
+    want = torch.from_numpy(a.copy())
+    got = transfer.to_device(a, cuda)
+    a[:] = -1  # at once: the last slots' copies may still run
+    assert torch.equal(got.cpu(), want)
+
+
+def test_a_kernel_queued_after_the_upload_sees_all_of_it(cuda):
+    from sgl_tpu_torch.utils import transfer
+
+    a = np.random.default_rng(1).integers(0, 1000, int(3.5 * transfer.SLOT_BYTES) // 4, dtype=np.int32)
+    got = transfer.to_device(a, cuda)
+    total, last = got.to(torch.int64).sum(), got[-1].clone()  # queued before any synchronize
+    assert total.item() == int(a.astype(np.int64).sum()) and last.item() == a[-1]
+
+
+def test_normalization_and_propagation_from_host_arrays_keep_their_bits(cuda, monkeypatch):
+    """``symmetric_normalized_weights`` and a 2-hop ``propagate`` from host
+    arrays: staged, the bits of the direct copies; the edges and ``x`` are
+    counted as staged."""
+    from sgl_tpu_torch.ops import LaplacianGraphOp
+    from sgl_tpu_torch.utils import transfer
+
+    g = random_power_law_graph(400_000, 12, 16, seed=5)
+    edge_bytes = g.src.nbytes + g.dst.nbytes + g.val.nbytes
+    assert min(g.src.nbytes, g.x.nbytes) >= transfer.STAGE_MIN_BYTES
+
+    def run():
+        adj = symmetric_normalized_weights(g, device=cuda)
+        hops = LaplacianGraphOp(2).propagate(g, g.x, device=cuda)
+        return [adj.src, adj.dst, adj.w, hops]
+
+    staged, counts = _counted(run)
+    assert counts["sgl.h2d_bytes[kind=staged]"] == 2 * edge_bytes + g.x.nbytes == counts["sgl.h2d_bytes"]
+    monkeypatch.setattr(transfer, "STAGE_MIN_BYTES", 1 << 62)
+    direct, counts = _counted(run)
+    assert "sgl.h2d_bytes[kind=staged]" not in counts
+    for s, d in zip(staged, direct):
+        assert _same_bits(s, d)
+
+
+def test_the_shared_ring_stays_bounded_over_repeated_uploads(cuda):
+    from sgl_tpu_torch.utils import transfer
+
+    for _ in range(4):
+        for dtype in (np.int32, np.float32, np.float64, np.int64):
+            a = np.ones(int(2.5 * transfer.SLOT_BYTES) // np.dtype(dtype).itemsize, dtype)
+            assert torch.equal(transfer.to_device(a, cuda), torch.as_tensor(a, device=cuda))
+    assert transfer._ring.nbytes == transfer.SLOTS * transfer.SLOT_BYTES
