@@ -1,7 +1,9 @@
 """A checkout of the benchmark's data files at tiny shapes, for the CPU
 tests: the manifest and every traffic mix, limit and metric reader as
 committed, each configuration cut to a few thousand nodes with its
-published widths replaced by small ones."""
+published widths replaced by small ones.  Each configuration brings its
+tiny shape as data, ``<config>.tiny.json`` beside its ``<config>.json``,
+so one added as files and entries alone is shrunk too."""
 
 from __future__ import annotations
 
@@ -19,29 +21,26 @@ for p in (str(REPO), str(BENCH)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-TINY = {
-    "sgc_reddit": dict(num_nodes=3000, stored_nonzeros=40000, split=[1500, 500, 1000], epochs=4,
-                       num_features=24, num_classes=5, model_args=dict(prop_steps=2, feat_dim=24, output_dim=5)),
-    "gamlp_products": dict(num_nodes=4000, stored_nonzeros=50000, split=[1800, 700, 1500], epochs=3,
-                           train_batch_size=500, eval_batch_size=600, num_features=16, num_classes=6,
-                           model_args=dict(prop_steps=3, feat_dim=16, output_dim=6, hidden_dim=32,
-                                           num_layers=3, dropout=0.5)),
-}
 
-
-def make_tiny_root(tmp: Path) -> Path:
+def make_tiny_root(tmp: Path, source: Path = REPO) -> Path:
     """``tmp`` laid out as a checkout: ``BENCHMARK.json`` and the data files
-    of ``benchmark/``, the configurations at tiny shapes (their plain
-    references copied beside them)."""
+    of ``benchmark/`` as ``source`` holds them, every configuration of the
+    manifest updated from its tiny shape (their plain references copied
+    beside them).  A configuration without a tiny shape raises: the CPU
+    tests never run one at its full size."""
     data = tmp / "benchmark"
     for sub in ("configs", "traffic", "limits", "metrics"):
-        shutil.copytree(BENCH / sub, data / sub)
-    for name, shape in TINY.items():
-        path = data / "configs" / f"{name}.json"
+        shutil.copytree(source / "benchmark" / sub, data / sub)
+    shutil.copy(source / "BENCHMARK.json", tmp / "BENCHMARK.json")
+    for entry in json.loads((tmp / "BENCHMARK.json").read_text())["configs"]:
+        path = tmp / entry["file"]
+        shape = path.with_suffix(".tiny.json")
+        if not shape.is_file():
+            raise FileNotFoundError(f"configuration {entry['name']!r} has no tiny shape: "
+                                    f"{shape.relative_to(tmp)} is missing")
         cfg = json.loads(path.read_text())
-        cfg.update(shape)
+        cfg.update(json.loads(shape.read_text()))
         path.write_text(json.dumps(cfg))
-    shutil.copy(REPO / "BENCHMARK.json", tmp / "BENCHMARK.json")
     return tmp
 
 

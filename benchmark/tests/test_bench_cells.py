@@ -31,7 +31,7 @@ def test_cell_runs_correct_at_a_tiny_shape(tiny_root, workload):
     assert list(out)[-1] == "checks"
     # every end-to-end metric of the cell but the card's memory, which the CPU has not
     want = {m["name"] for m in MAN["end_to_end"] if workload in m.get("workloads", [workload])}
-    assert set(out["metrics"]) == want - {"peak_mem_gib"} and len(want) >= 3
+    assert set(out["metrics"]) == want - {"peak_mem_gib"} and "setup_s" in want and len(want) >= 2
     for c in out["checks"].values():
         assert c["value"] <= c["limit"]
 
@@ -44,6 +44,14 @@ def test_traced_run_keeps_correct_and_reads_no_device_number_off_the_card(tiny_r
     assert set(out["metrics"]) <= {"train_steps_ms"}
     assert ("train_steps_ms" in out["metrics"]) == workload.endswith("train")
     assert len(out["breakdown"]["idle_gaps"]) <= 10 and len(out["breakdown"]["device_ops"]) <= 10
+
+
+def test_traced_full_batch_cell_reads_its_epoch_time_per_layer(tiny_root):
+    out = run_tiny(tiny_root, "sgc_reddit.train", seed=7, trace=True)
+    assert out["correct"], out["checks"]
+    # its epoch time is a layer's number there; no device number or share off the card
+    assert set(out["metrics"]) == {"epoch_ms.full_batch"}
+    assert out["metrics"]["epoch_ms.full_batch"]["value"] > 0
 
 
 def test_same_seed_gives_the_same_inputs():

@@ -79,6 +79,18 @@ def test_every_file_a_name_finds_exists():
         assert (BENCH / "metrics" / f"{m['name']}.py").is_file(), m["name"]
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in MAN["configs"]])
+def test_every_config_brings_a_tiny_shape_for_the_cpu_tests(config):
+    """``<config>.tiny.json`` beside the configuration: a few of its keys,
+    ``model_args`` whole, at most 20,000 nodes and 200,000 nonzeros."""
+    path = REPO / next(c["file"] for c in MAN["configs"] if c["name"] == config)
+    cfg = json.loads(path.read_text())
+    tiny = json.loads(path.with_suffix(".tiny.json").read_text())
+    assert set(tiny) <= set(cfg)
+    assert set(tiny["model_args"]) == set(cfg["model_args"])
+    assert tiny["num_nodes"] <= 20_000 and tiny["stored_nonzeros"] <= 200_000
+
+
 def test_each_cell_reports_setup_another_end_to_end_metric_and_a_layer_metric():
     assert any(m["name"] == "setup_s" and m["bound"] <= 0.25 for m in MAN["end_to_end"])
     for w in MAN["workloads"]:

@@ -86,7 +86,8 @@ def test_tf32_rounding():
     assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
 
 
-PLAIN = ["reference.py", "judge.py", "roofline.py", "configs/sgc_reddit.py", "configs/gamlp_products.py"]
+PLAIN = ["reference.py", "judge.py", "roofline.py"] + sorted(
+    p.relative_to(BENCH).as_posix() for p in BENCH.glob("configs/*.py"))
 
 
 @pytest.mark.parametrize("name", PLAIN)
