@@ -273,3 +273,31 @@ def degree_ordering(graph: Graph, descending: bool = True) -> np.ndarray:
     perm = np.empty(graph.num_nodes, np.int64)
     perm[order] = np.arange(graph.num_nodes)
     return perm
+
+
+def laplacian_pe(graph: Graph, k: int) -> np.ndarray:
+    """NAGphormer's positional encoding (its ``utils.get_dataset``): the
+    ``k`` eigenvectors of ``L = I - D^-1/2 A D^-1/2`` after the one of the
+    smallest eigenvalue, in ascending order of eigenvalue, as ``(N, k)``
+    float32 columns.  On a connected graph these are the ``k`` of smallest
+    nonzero eigenvalue.  ``A`` is the graph read as undirected and
+    unweighted (an edge either way links two nodes), ``D`` its degrees, at
+    least 1.  scipy's ``eigsh`` solves to working precision from a fixed
+    start; each column's entry of largest magnitude is made positive, so
+    the signs repeat.  Concatenate the result to the features and count its
+    columns in the model's ``feat_dim``."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import eigsh
+
+    n = graph.num_nodes
+    if not 0 < k < n - 1:
+        raise ValueError(f"k = {k} eigenvectors of a {n}-node graph: need 0 < k < {n - 1}")
+    src, dst, _ = graph.edges()
+    a = sp.csr_matrix((np.ones(src.shape[0]), (src, dst)), shape=(n, n))
+    a = ((a + a.T) > 0).astype(np.float64)
+    inv_sqrt = sp.diags(np.maximum(np.asarray(a.sum(axis=1)).ravel(), 1.0) ** -0.5)
+    lap = sp.identity(n, format="csr") - inv_sqrt @ a @ inv_sqrt
+    vals, vecs = eigsh(lap, k=k + 1, which="SA", v0=np.ones(n))
+    vecs = vecs[:, np.argsort(vals)][:, 1:]
+    sign = np.sign(vecs[np.abs(vecs).argmax(axis=0), np.arange(k)])
+    return (vecs * sign).astype(np.float32)

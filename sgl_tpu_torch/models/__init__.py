@@ -4,19 +4,25 @@ from sgl_tpu_torch.models.blocks import (  # noqa: F401
     Dense,
     FastDropout,
     FastOneDimConvolution,
+    FeedForward,
     IdenticalMapping,
+    LayerNorm,
     LogisticRegression,
+    MultiHeadAttention,
     MultiLayerPerceptron,
     OneDimConvolution,
     OneDimConvolutionWeightSharedAcrossFeatures,
     PReLU,
     ResMultiLayerPerceptron,
+    TransformerEncoderLayer,
+    TwoLayerHead,
     init_params,
 )
 from sgl_tpu_torch.models.homo import (  # noqa: F401
     GAMLP,
     GBP,
     NAFS,
+    NAGphormer,
     PASCA_V1,
     PASCA_V2,
     PASCA_V3,

@@ -183,8 +183,13 @@ class SGAPModel:
                 feats = feats.movedim(0, 1)
             return feats
         idx = torch.as_tensor(idx, device=self.processed_feature.device)
-        dim = 1 if self.pre_msg_learnable and not self.node_major else 0
-        return self.processed_feature.index_select(dim, idx)
+        return self.processed_feature.index_select(self.row_dim, idx)
+
+    @property
+    def row_dim(self) -> int:
+        """The node axis of the cached features: 1 for a hop-major stack,
+        else 0."""
+        return 1 if self.pre_msg_learnable and not self.node_major else 0
 
     def apply(self, idx, train: bool = False, generator=None) -> torch.Tensor:
         return self.net(self.batch_input(idx), train=train, generator=generator)

@@ -11,7 +11,11 @@ same distributions (not the same numbers: the random streams differ):
 * ``BatchNorm`` starts at scale 1, bias 0, running mean 0 and variance 1;
 * the NARS aggregators' 3-D weights use ``variance_scaling(1, fan_avg,
   uniform)`` with Flax's fan rule (:func:`flax_fans`), and
-  ``FastOneDimConvolution`` starts from ones.
+  ``FastOneDimConvolution`` starts from ones;
+* the hop-token transformer's blocks (NAGphormer, which has no ``sgl_tpu``
+  twin) draw every ``Dense`` weight from ``N(0, std²)`` with ``std =
+  0.02/sqrt(num_layers)``, as NAGphormer's ``init_params`` does, zero
+  biases, and ``LayerNorm`` starts at scale 1, bias 0.
 
 Every module that owns parameters has ``reset_parameters(generator)``;
 :func:`init_params` runs them all from one explicit ``torch.Generator``.
@@ -25,6 +29,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sgl_tpu_torch.utils.profiling import span
 
 # Flax's truncated normal: unit normal cut at ±2, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -66,15 +72,18 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) 
 
 class Dense(nn.Module):
     """Affine layer ``x @ weight.T + bias`` with Flax ``Dense``'s
-    initializers.  ``weight`` is ``(out, in)``, the transpose of a Flax
-    ``kernel``.  ``forward(x, dtype)`` computes in ``dtype`` when given
-    (parameters stay f32), as Flax ``Dense(dtype=...)`` does."""
+    initializers, or ``kernel_init="normal"``: ``N(0, std²)``.  ``weight``
+    is ``(out, in)``, the transpose of a Flax ``kernel``.  ``forward(x,
+    dtype)`` computes in ``dtype`` when given (parameters stay f32), as
+    Flax ``Dense(dtype=...)`` does."""
 
-    def __init__(self, in_features: int, out_features: int, kernel_init: str = "lecun_normal"):
+    def __init__(self, in_features: int, out_features: int, kernel_init: str = "lecun_normal",
+                 std: float = 0.02):
         super().__init__()
-        if kernel_init not in ("lecun_normal", "xavier_relu"):
+        if kernel_init not in ("lecun_normal", "xavier_relu", "normal"):
             raise ValueError(f"unknown kernel_init {kernel_init!r}")
         self.kernel_init = kernel_init
+        self.std = std
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
         self.reset_parameters()
@@ -84,6 +93,8 @@ class Dense(nn.Module):
         out_f, in_f = self.weight.shape
         if self.kernel_init == "lecun_normal":
             lecun_normal_(self.weight, in_f, generator)
+        elif self.kernel_init == "normal":
+            nn.init.normal_(self.weight, 0.0, self.std, generator=generator)
         else:
             xavier_relu_uniform_(self.weight, in_f, out_f, generator)
         self.bias.zero_()
@@ -332,3 +343,90 @@ class FastOneDimConvolution(nn.Module):
     def subgraph_weight(self) -> torch.Tensor:
         """Each subgraph's weight summed over its hops: ``(S,)``."""
         return self.weight.detach().reshape(self.num_subgraphs, self.prop_steps).sum(dim=1)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axis (eps 1e-5, scale 1, bias 0) whose
+    ``reset_parameters`` takes the generator :func:`init_params` passes; it
+    draws nothing from it."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        super().reset_parameters()
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention over short token sequences ``(B, T, h)`` (NAGphormer's
+    ``MultiHeadAttention``): ``num_heads`` heads of ``h / num_heads``, q
+    scaled by ``head_dim^-1/2``, a softmax over the ``T`` keys, dropout on
+    the probabilities through :class:`FastDropout` (bits of shape ``(B, H,
+    T, T)``), then the output projection.  q, k and v are one ``(3h, h)``
+    projection, ``qkv``, so that one product makes all three."""
+
+    def __init__(self, hidden_dim: int, num_heads: int, attn_dropout: float, std: float):
+        super().__init__()
+        if hidden_dim % num_heads:
+            raise ValueError(f"hidden_dim {hidden_dim} is not a multiple of num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.scale = (hidden_dim // num_heads) ** -0.5
+        self.qkv = Dense(hidden_dim, 3 * hidden_dim, kernel_init="normal", std=std)
+        self.out = Dense(hidden_dim, hidden_dim, kernel_init="normal", std=std)
+        self.attn_dropout = FastDropout(attn_dropout)
+
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        b, t, h = x.shape
+        # (B, T, 3, H, dh) -> three (B, H, T, dh)
+        q, k, v = self.qkv(x).view(b, t, 3, self.num_heads, h // self.num_heads).permute(2, 0, 3, 1, 4)
+        probs = torch.softmax((q * self.scale) @ k.transpose(-1, -2), dim=-1)
+        probs = self.attn_dropout(probs, train, generator)
+        return self.out((probs @ v).transpose(1, 2).reshape(b, t, h))
+
+
+class FeedForward(nn.Module):
+    """``fc2(GELU(fc1(x)))`` with the exact (erf) GELU, no inner dropout."""
+
+    def __init__(self, hidden_dim: int, ffn_dim: int, std: float):
+        super().__init__()
+        self.fc1 = Dense(hidden_dim, ffn_dim, kernel_init="normal", std=std)
+        self.fc2 = Dense(ffn_dim, hidden_dim, kernel_init="normal", std=std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """A pre-LN encoder layer over ``(B, T, h)`` tokens:
+    ``x + Drop(MHA(LN(x)))``, then ``x + Drop(FFN(LN(x)))``.  Its forward
+    opens the spans ``sgl.hop_token.attention`` and ``sgl.hop_token.ffn``
+    (stream-timed) around the two sublayers, residuals included."""
+
+    def __init__(self, hidden_dim: int, num_heads: int, ffn_dim: int, dropout: float, attn_dropout: float,
+                 std: float):
+        super().__init__()
+        self.attn_norm = LayerNorm(hidden_dim)
+        self.attn = MultiHeadAttention(hidden_dim, num_heads, attn_dropout, std)
+        self.ffn_norm = LayerNorm(hidden_dim)
+        self.ffn = FeedForward(hidden_dim, ffn_dim, std)
+        self.dropout = FastDropout(dropout)
+
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        with span("sgl.hop_token.attention", stream=True):
+            x = x + self.dropout(self.attn(self.attn_norm(x), train, generator), train, generator)
+        with span("sgl.hop_token.ffn", stream=True):
+            x = x + self.dropout(self.ffn(self.ffn_norm(x)), train, generator)
+        return x
+
+
+class TwoLayerHead(nn.Module):
+    """``fc2(ReLU(fc1(x)))``, widths ``in_dim -> in_dim / 2 -> output_dim``
+    (NAGphormer's ``out_proj`` and ``Linear1``), no dropout."""
+
+    def __init__(self, in_dim: int, output_dim: int, std: float):
+        super().__init__()
+        self.fc1 = Dense(in_dim, in_dim // 2, kernel_init="normal", std=std)
+        self.fc2 = Dense(in_dim // 2, output_dim, kernel_init="normal", std=std)
+
+    def forward(self, x, train: bool = False, generator=None):
+        return self.fc2(torch.relu(self.fc1(x)))

@@ -1,9 +1,10 @@
 """Homogeneous SGAP models — counterpart of ``sgl_tpu/models/homo.py``.
 
 Each model is the same composition of graph op, message op and base net as
-its ``sgl_tpu`` twin, with the same argument order.  Where Flax infers a
-layer's input width from the first batch, the port's layers take it from
-``feat_dim`` (``(K+1)·feat_dim`` for SIGN's concat).  ``SGCDist`` and
+its ``sgl_tpu`` twin, with the same argument order; ``NAGphormer`` is the
+port's own, with no twin.  Where Flax infers a layer's input width from the
+first batch, the port's layers take it from ``feat_dim`` (``(K+1)·feat_dim``
+for SIGN's concat).  ``SGCDist`` and
 ``GAMLPDist`` are aliases, as in ``sgl_tpu``.
 """
 
@@ -15,10 +16,12 @@ from sgl_tpu_torch.models.blocks import (
     LogisticRegression,
     MultiLayerPerceptron,
     ResMultiLayerPerceptron,
+    TwoLayerHead,
 )
 from sgl_tpu_torch.ops.graph_ops import LaplacianGraphOp, PprGraphOp
 from sgl_tpu_torch.ops.message_ops import (
     ConcatMessageOp,
+    HopTokenMessageOp,
     IterateLearnableWeightedMessageOp,
     LastMessageOp,
     LearnableWeightedMessageOp,
@@ -242,6 +245,43 @@ class PASCA_V3(SGAPModel):
             ),
             post_graph_op=PprGraphOp(post_steps, r=0.5, alpha=0.3),
             post_msg_op=LastMessageOp(),
+        )
+
+
+class NAGphormer(SGAPModel):
+    """Laplacian(r=.5) / hop-token transformer / two-layer ReLU head
+    (Chen et al., ICLR 2023, arXiv:2206.04910).
+
+    The hop stack ``[x, Âx, …, Â^K x]`` is kept whole and hop-major; each
+    batch's ``K+1`` hops per node go through :class:`HopTokenMessageOp`
+    (embedding, ``num_layers`` pre-LN encoder layers of ``num_heads`` heads
+    and an FFN of ``2·hidden_dim``, the final norm and the hop readout),
+    then ``hidden_dim -> hidden_dim/2 -> output_dim``.  NAGphormer's input
+    is the features beside the Laplacian eigenvectors
+    (``graph.transforms.laplacian_pe``): ``feat_dim`` counts both.  The
+    published model's ``scaling`` parameter, which its forward never
+    reads, is left out."""
+
+    def __init__(
+        self,
+        prop_steps: int,
+        feat_dim: int,
+        output_dim: int,
+        hidden_dim: int = 512,
+        num_heads: int = 8,
+        num_layers: int = 1,
+        dropout: float = 0.1,
+        attn_dropout: float = 0.1,
+    ):
+        super().__init__(
+            prop_steps,
+            feat_dim,
+            output_dim,
+            pre_graph_op=LaplacianGraphOp(prop_steps, r=0.5),
+            pre_msg_op=HopTokenMessageOp(
+                prop_steps, feat_dim, hidden_dim, num_heads, num_layers, dropout, attn_dropout
+            ),
+            base_model=TwoLayerHead(hidden_dim, output_dim, std=0.02 / num_layers ** 0.5),
         )
 
 

@@ -8,6 +8,7 @@ from sgl_tpu_torch.ops.graph_ops import (  # noqa: F401
 from sgl_tpu_torch.ops.message_ops import (  # noqa: F401
     LEARNABLE_AGGR_TYPES,
     ConcatMessageOp,
+    HopTokenMessageOp,
     IterateLearnableWeightedMessageOp,
     LastMessageOp,
     LearnableWeightedMessageOp,

@@ -1,10 +1,11 @@
 """Message ops: hop aggregation over the stacked ``(K+1, B, D)`` tensor.
 
 Counterpart of ``sgl_tpu/ops/message_ops.py``: the same eleven ops, as
-``nn.Module``s.  ``aggr_type`` drives the eager-vs-lazy aggregation split in
-``SGAPModel`` as in ``sgl_tpu``.  Hop stacks are hop-major; the two
-attention ops (``supports_node_major``) also take a node-major
-``(B, K+1, D)`` stack with ``node_major=True``.
+``nn.Module``s, and one of the port's own, :class:`HopTokenMessageOp`
+(NAGphormer's hop-token transformer).  ``aggr_type`` drives the
+eager-vs-lazy aggregation split in ``SGAPModel`` as in ``sgl_tpu``.  Hop
+stacks are hop-major; the two attention ops (``supports_node_major``) also
+take a node-major ``(B, K+1, D)`` stack with ``node_major=True``.
 
 The quirks ``sgl_tpu`` keeps are kept here (PARITY.md §2.2–2.3): the first
 hop's projection in ``ProjectedConcatMessageOp`` gets no ReLU; the
@@ -20,8 +21,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from sgl_tpu_torch.utils.profiling import count, span
+
 LEARNABLE_AGGR_TYPES = frozenset(
-    {"proj_concat", "learnable_weighted", "iterate_learnable_weighted"}
+    {"proj_concat", "learnable_weighted", "iterate_learnable_weighted", "hop_tokens"}
 )
 
 
@@ -405,3 +408,58 @@ class OverSmoothDistanceWeightedOp(MessageOp):
         cos = torch.einsum("bd,kbd->kb", ref, hops) / (norms * ref_norm[None])
         w = torch.softmax(cos, dim=0)  # over hops, per node
         return torch.einsum("kb,kbd->bd", w, hops)
+
+
+class HopTokenMessageOp(MessageOp):
+    """NAGphormer's hop tokens (Chen et al., ICLR 2023, arXiv:2206.04910):
+    each node's ``K+1`` hops are a sequence of tokens, embedded, passed
+    through ``num_layers`` pre-LN encoder layers, normalized, and read out
+    into one row per node.
+
+    ``hops`` is the hop-major batch ``(K+1, B, D)``; the tokens are
+    node-major, ``(B, K+1, h)``, from the embedding on.  The readout is
+    ``z_0 + sum_k alpha_k z_k`` over hops ``1..K``, ``alpha`` a softmax over
+    the hops of ``readout · [z_0, z_k]``; the readout's weight is applied
+    in its two halves, so the ``(B, K, 2h)`` concat is never built.  Every
+    ``Dense`` draws from ``N(0, (0.02/sqrt(num_layers))²)``.  Each forward
+    counts its ``B·(K+1)`` tokens in ``sgl.hop_tokens`` (``kind`` train or
+    eval) and opens ``sgl.hop_token.readout`` around the final norm and the
+    readout; the encoder layers open their own spans."""
+
+    aggr_type: str = "hop_tokens"
+
+    def __init__(
+        self,
+        prop_steps: int,
+        feat_dim: int,
+        hidden_dim: int,
+        num_heads: int,
+        num_layers: int,
+        dropout: float,
+        attn_dropout: float,
+    ):
+        from sgl_tpu_torch.models.blocks import Dense, LayerNorm, TransformerEncoderLayer
+
+        super().__init__(0, prop_steps + 1)
+        std = 0.02 / num_layers ** 0.5
+        self.embed = Dense(feat_dim, hidden_dim, kernel_init="normal", std=std)
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(hidden_dim, num_heads, 2 * hidden_dim, dropout, attn_dropout, std)
+            for _ in range(num_layers)
+        )
+        self.final_norm = LayerNorm(hidden_dim)
+        self.readout = Dense(2 * hidden_dim, 1, kernel_init="normal", std=std)
+
+    def forward(self, hops: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        k1, b = hops.shape[0], hops.shape[1]
+        count("sgl.hop_tokens", k1 * b, kind="train" if train else "eval")
+        x = self.embed(hops.transpose(0, 1))  # (B, K+1, h)
+        for layer in self.layers:
+            x = layer(x, train, generator)
+        with span("sgl.hop_token.readout", stream=True):
+            z = self.final_norm(x)
+            node, hop = z[:, 0], z[:, 1:]
+            w = self.readout.weight[0]
+            h = node.shape[-1]
+            score = (node @ w[:h] + self.readout.bias)[:, None] + hop @ w[h:]  # (B, K)
+            return node + torch.einsum("bk,bkh->bh", torch.softmax(score, dim=1), hop)

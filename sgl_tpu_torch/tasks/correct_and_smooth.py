@@ -16,7 +16,6 @@ import torch
 
 from sgl_tpu_torch.graph.normalize import symmetric_normalized_weights
 from sgl_tpu_torch.tasks.node_classification import NodeClassification
-from sgl_tpu_torch.tasks.utils import make_logits_fn
 from sgl_tpu_torch.tricks.correct_and_smooth import CorrectAndSmooth
 
 
@@ -48,9 +47,7 @@ class NodeClassificationWithCorrectAndSmooth(NodeClassification):
         super().__init__(dataset, model, lr, weight_decay, epochs, device=device, **kw)
 
     def _on_best(self, net) -> None:
-        all_idx = torch.arange(self._dataset.num_node, device=self._device)
-        logits = make_logits_fn(net)(self._model.batch_input(all_idx))
-        self._best_y_soft = torch.softmax(logits, dim=1)
+        self._best_y_soft = torch.softmax(self._all_logits(net), dim=1)
 
     def _postprocess(self, net, labels, val_idx, test_idx):
         if self._best_y_soft is None:

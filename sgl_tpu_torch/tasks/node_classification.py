@@ -188,19 +188,23 @@ class NodeClassification(BaseTask):
         """Called whenever the validation accuracy improves, with the net
         as it stands (subclasses keep best-epoch outputs)."""
 
-    def _postprocess(self, net, labels, val_idx, test_idx):
-        ds, model, device = self._dataset, self._model, self._device
-        all_idx = torch.arange(ds.num_node, device=device)
-        logits = make_logits_fn(net)
+    def _all_logits(self, net) -> torch.Tensor:
+        """Every node's eval logits, in pieces of the eval batch."""
+        ds, model = self._dataset, self._model
         if hasattr(model.processed_feature, "rows"):
             # a host hop store never enters the card whole: its rows go in
             # pieces of the eval batch (the logits are row-wise)
+            all_idx = torch.arange(ds.num_node, device=self._device)
+            logits = make_logits_fn(net)
             step = self._eval_batch_size or self._train_batch_size or ds.num_node
-            outputs = torch.cat([logits(model.batch_input(all_idx[i:i + step]))
-                                 for i in range(0, ds.num_node, step)])
-        else:
-            outputs = logits(model.batch_input(all_idx))
-        final = model.postprocess(ds.graph, outputs)
+            return torch.cat([logits(model.batch_input(all_idx[i:i + step]))
+                              for i in range(0, ds.num_node, step)])
+        # every node's rows as cached, no gathered copy, inside the one call
+        return make_logits_fn(net, self._eval_batch_size, model.row_dim)(model.processed_feature)
+
+    def _postprocess(self, net, labels, val_idx, test_idx):
+        ds, model, device = self._dataset, self._model, self._device
+        final = model.postprocess(ds.graph, self._all_logits(net))
         pred = final.argmax(dim=1)
 
         def acc(idx):

@@ -34,13 +34,13 @@ from sgl_tpu_torch.tasks.utils import (
 )
 
 
-def reuse_labels(model, net, graph, features: np.ndarray, unlabeled, num_classes: int, device) -> None:
+def reuse_labels(model, net, graph, features: np.ndarray, unlabeled, num_classes: int, device,
+                 batch_size=None) -> None:
     """One label-reuse iteration: the soft predictions of ``net`` on every
-    node replace the label columns of the ``unlabeled`` rows of
-    ``features`` (in place, on the host), then ``model`` propagates the
-    result again."""
-    all_idx = torch.arange(graph.num_nodes, device=device)
-    pred = make_logits_fn(net)(model.batch_input(all_idx))
+    node (in pieces of ``batch_size`` rows) replace the label columns of the
+    ``unlabeled`` rows of ``features`` (in place, on the host), then
+    ``model`` propagates the result again."""
+    pred = make_logits_fn(net, batch_size, model.row_dim)(model.processed_feature)
     soft = torch.softmax(pred, dim=-1).cpu().numpy()
     features[unlabeled, -num_classes:] = soft[unlabeled]
     model.preprocess(graph, features, device=device)
@@ -144,7 +144,8 @@ class NodeClassificationWithLabelUse(BaseTask):
             if self._label_iters > 0 and epoch > self._reuse_start_epoch:
                 unlabeled = np.concatenate([train_pred_idx, val_idx, test_idx])
                 for _ in range(self._label_iters):
-                    reuse_labels(model, net, ds.graph, features, unlabeled, num_classes, device)
+                    reuse_labels(model, net, ds.graph, features, unlabeled, num_classes, device,
+                                 self._eval_batch_size)
             _sync(device)
             self.propagate_seconds.append(time.perf_counter() - t0)
             if self._verbose:
@@ -174,8 +175,7 @@ class NodeClassificationWithLabelUse(BaseTask):
                 best_val, best_test = acc_val, acc_test
 
         # post-process, with the model's optional post-propagation
-        all_idx = torch.arange(ds.num_node, device=device)
-        outputs = make_logits_fn(net)(model.batch_input(all_idx))
+        outputs = make_logits_fn(net, self._eval_batch_size, model.row_dim)(model.processed_feature)
         pred = model.postprocess(ds.graph, outputs).argmax(dim=1)
 
         def acc(idx):

@@ -116,10 +116,19 @@ def make_eval_step(net: nn.Module):
     return step
 
 
-def make_logits_fn(net: nn.Module):
+def make_logits_fn(net: nn.Module, batch_size: Optional[int] = None, row_dim: int = 0):
+    """``logits(feats)``: the eval forward of every row of ``feats``; with
+    ``batch_size`` it runs in pieces of that many rows along ``row_dim``
+    (the rows of a hop-major stack are its axis 1), one call still giving
+    every row's logits, so that no activation is held for all rows."""
+
     @torch.no_grad()
     def logits(feats):
-        return net(feats, train=False)
+        n = feats.shape[row_dim]
+        if batch_size is None or batch_size >= n:
+            return net(feats, train=False)
+        return torch.cat([net(feats.narrow(row_dim, i, min(batch_size, n - i)), train=False)
+                          for i in range(0, n, batch_size)])
 
     return logits
 

@@ -154,3 +154,27 @@ def test_scipy_roundtrip_matches():
     back, jback = P.to_scipy(g), J.to_scipy(J.from_scipy(a, x=x, y=y))
     assert (back != jback).nnz == 0 and (back != a).nnz == 0
     assert back.shape == (80, 80)
+
+
+def test_laplacian_pe_is_eigh_up_to_sign():
+    """NAGphormer's positional encoding against ``numpy.linalg.eigh`` of the
+    dense ``I - D^-1/2 A D^-1/2`` on a connected 60-node graph stored one
+    way only (the transform reads it as undirected): the 6 eigenvectors
+    after the zero one, each up to its sign, which the transform fixes."""
+    n, k = 60, 6
+    a = sp.random(n, n, density=0.05, random_state=4, format="csr")
+    a = a + sp.diags(np.ones(n - 1), 1)  # a path: connected
+    a = sp.triu(a, k=1).tocsr()
+    g = P.from_scipy(a)
+    pe = P.laplacian_pe(g, k)
+    assert pe.shape == (n, k) and pe.dtype == np.float32
+    dense = ((a + a.T) > 0).toarray().astype(np.float64)
+    inv = np.diag(dense.sum(axis=1) ** -0.5)
+    vals, vecs = np.linalg.eigh(np.eye(n) - inv @ dense @ inv)
+    assert abs(vals[0]) < 1e-12 and np.diff(vals[: k + 2]).min() > 1e-3  # one zero, then distinct
+    want = vecs[:, 1:k + 1]
+    want = want * np.sign((want * pe).sum(axis=0))
+    np.testing.assert_allclose(pe, want, atol=1e-6)  # f32 columns of unit norm
+    assert (pe[np.abs(pe).argmax(axis=0), np.arange(k)] > 0).all()
+    with pytest.raises(ValueError, match="eigenvectors"):
+        P.laplacian_pe(g, n)
