@@ -22,6 +22,7 @@ import torch
 from sgl_tpu_torch.device import resolve_device
 from sgl_tpu_torch.graph.batch import batch_graphs
 from sgl_tpu_torch.graph.graph import Graph, HeteroGraph
+from sgl_tpu_torch.utils.transfer import to_device
 
 
 class DeviceSplit(NamedTuple):
@@ -144,11 +145,12 @@ class NodeDataset(_CachedDataset):
         return self.graph
 
     def to_device(self, device=None) -> DeviceSplit:
-        """Labels and split indices on ``device`` (default: the GPU)."""
+        """Labels and split indices on ``device`` (default: the GPU), each
+        uploaded by :func:`~sgl_tpu_torch.utils.transfer.to_device`."""
         device = resolve_device(device)
 
         def t(a):
-            return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+            return to_device(np.asarray(a), device, dtype=torch.int64)
 
         return DeviceSplit(
             t(np.asarray(self.y).reshape(-1)), t(self.train_idx), t(self.val_idx), t(self.test_idx)

@@ -10,7 +10,7 @@ GPU unless ``device="cpu"`` is passed, and raises when no GPU is present.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from sgl_tpu_torch.tasks.utils import (
 )
 from sgl_tpu_torch.utils.config import TrainConfig
 from sgl_tpu_torch.utils.profiling import count, span
+from sgl_tpu_torch.utils.transfer import to_device_nonblocking
 
 
 def _sync(device: torch.device) -> None:
@@ -36,21 +37,54 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _batches(idx, batch_size: Optional[int], shuffle: bool, rng, device: torch.device):
-    """The batches of ``batch_iterator`` with their indices and weights on
-    ``device``: yields ``(indices, weights, host weights)``, each batch
-    prepared inside a ``sgl.task.batch`` span.  Each upload copies from
-    pageable host memory, which blocks the host until the card's stream
-    has drained: a host sync."""
+def _take(x, pos, s: int, size: int):
+    """Entries ``s`` to ``s + size`` of ``x`` in a batch order (a numpy
+    array or a tensor): ``x[pos[s:s + size]]`` where ``pos`` holds the
+    order's positions, else ``x[s:s + size]`` with a short tail wrapped to
+    ``x``'s first entries, as ``batch_iterator`` wraps it."""
+    if pos is not None:
+        return x[pos[s:s + size]]
+    pad = s + size - len(x)
+    if pad <= 0:
+        return x[s:s + size]
+    return (torch.cat if isinstance(x, torch.Tensor) else np.concatenate)([x[s:], x[:pad]])
+
+
+def _order(n: int, batch_size: Optional[int], rng, device: torch.device):
+    """A shuffled epoch's order of ``n`` rows for :func:`_batches`:
+    ``(positions on the device, positions on the host)``, every batch's
+    positions end to end as ``batch_iterator`` over ``arange(n)`` gives
+    them (its one draw from ``rng``), sent in one copy that does not wait
+    (``to_device_nonblocking``).  None for one batch, which takes the rows
+    in order and for which ``batch_iterator`` draws nothing."""
+    if batch_size is None or batch_size >= n:
+        return None
+    host = np.concatenate([p for p, _ in batch_iterator(np.arange(n), batch_size, True, rng)])
+    return to_device_nonblocking(host, device), host
+
+
+def _batches(idx: torch.Tensor, batch_size: Optional[int], order=None, host_idx=None):
+    """The batches of ``batch_iterator`` over a split's indices ``idx`` (a
+    tensor) in ``order`` (:func:`_order`'s; None: in order), built where
+    ``idx`` lives, each inside a ``sgl.task.batch`` span, with nothing read
+    back: yields ``(indices, weights, kept, feature indices)``, ``kept``
+    the rows that are no wrapped duplicates (the weights' sum).  The
+    feature indices are ``indices``, or with ``host_idx`` (``idx`` on the
+    host, for a host hop store, whose ``rows`` gathers on the host) that
+    batch of ``host_idx``."""
     n = len(idx)
-    batches = batch_iterator(idx, batch_size, shuffle=shuffle, rng=rng)
-    # one span a batch that batch_iterator yields: none around its exhaustion
-    for _ in range(1 if batch_size is None or batch_size >= n else -(-n // batch_size)):
+    size = n if batch_size is None or batch_size >= n else batch_size
+    pos, host_pos = order or (None, None)
+    # an empty split is one empty batch, as batch_iterator yields it
+    for s in range(0, max(n, 1), max(size, 1)):
         with span("sgl.task.batch"):
-            b_idx, w = next(batches)
-            b, w_dev = torch.as_tensor(b_idx, device=device), torch.as_tensor(w, device=device)
-            count("sgl.task.host_sync", 2, kind="upload")
-        yield b, w_dev, w
+            kept = min(size, n - s)
+            b = _take(idx, pos, s, size)
+            w = torch.ones(size, device=idx.device)
+            if kept < size:
+                w[kept:] = 0.0
+            fb = b if host_idx is None else _take(host_idx, host_pos, s, size)
+        yield b, w, kept, fb
 
 
 class NodeClassification(BaseTask):
@@ -90,10 +124,13 @@ class NodeClassification(BaseTask):
         self._precompute_dtype = precompute_dtype
         #: wall seconds of ``model.preprocess`` (device work included)
         self.preprocess_seconds: float = 0.0
-        #: wall seconds of each epoch's training steps (device work included)
+        #: wall seconds of each epoch's training steps, ended by the read of
+        #: their losses, which waits for the card's work
         self.epoch_seconds: List[float] = []
         #: each epoch's mean training loss (weighted by the batches' rows)
         self.train_losses: List[float] = []
+        #: each epoch's (train, validation, test) accuracy
+        self.epoch_accuracies: List[Tuple[float, float, float]] = []
         with span("sgl.task.job"):
             self._test_acc = self._execute()
 
@@ -117,11 +154,18 @@ class NodeClassification(BaseTask):
         if self._verbose:
             print(f"Preprocessing done in {self.preprocess_seconds:.4f}s")
 
+        # the split's indices go to the device once a job; its batches are
+        # built there and the steps' results read twice an epoch
         split = ds.to_device(device)
         labels = split.y
         train_idx = np.asarray(ds.train_idx)
         val_idx = np.asarray(ds.val_idx)
         test_idx = np.asarray(ds.test_idx)
+        # a host hop store gathers its rows on the host, from host indices
+        host_rows = hasattr(model.processed_feature, "rows")
+
+        def train_order():
+            return _order(len(train_idx), self._train_batch_size, np_rng, device)
 
         net = model.net.cpu()
         model.init(init_gen)
@@ -130,28 +174,38 @@ class NodeClassification(BaseTask):
         train_step = make_train_step(net, optimizer, self._loss_fn)
         eval_step = make_eval_step(net)
 
-        def eval_on(idx):
-            correct, total = 0.0, 0.0
-            for b, w_dev, _ in _batches(idx, self._eval_batch_size, False, np_rng, device):
-                c, t = eval_step(model.batch_input(b), labels[b], w_dev)
-                correct += float(c)
-                total += float(t)
-                count("sgl.task.host_sync", 2, kind="read")
-            return correct / max(total, 1.0)
+        def train_steps(order):
+            """The epoch's steps in ``order``; returns their losses,
+            accuracies and kept rows, the first two read in one copy after
+            the last step."""
+            steps, kept_rows = [], []
+            for b, w, kept, fb in _batches(split.train_idx, self._train_batch_size, order,
+                                           train_idx if host_rows else None):
+                steps.append(train_step(model.batch_input(fb), labels[b], w, dropout_gen))
+                kept_rows.append(float(kept))
+            losses, accs = zip(*steps)
+            losses, accs = torch.stack(losses + accs).view(2, -1).tolist()  # waits for the steps
+            count("sgl.task.host_sync", kind="read")
+            return losses, accs, kept_rows
+
+        def eval_sums(idx, host_idx):
+            """The split's hits and weights, summed on the device (whole
+            numbers, exact in f64)."""
+            hits, weights = [], []
+            for b, w, _, fb in _batches(idx, self._eval_batch_size, None, host_idx if host_rows else None):
+                c, t = eval_step(model.batch_input(fb), labels[b], w)
+                hits.append(c)
+                weights.append(t)
+            return torch.stack(hits).double().sum(), torch.stack(weights).double().sum()
 
         best_val, best_test = 0.0, 0.0
         t_total = time.perf_counter()
+        order = train_order()
         for epoch in range(self._epochs):
             with span("sgl.task.epoch"):
                 with span("sgl.task.train") as train_span:
                     t = time.perf_counter_ns()
-                    losses, accs, weights = [], [], []
-                    for b, w_dev, w in _batches(train_idx, self._train_batch_size, True, np_rng, device):
-                        loss, acc = train_step(model.batch_input(b), labels[b], w_dev, dropout_gen)
-                        losses.append(float(loss))  # waits for the step to finish
-                        accs.append(float(acc))
-                        count("sgl.task.host_sync", 2, kind="read")
-                        weights.append(float(w.sum()))
+                    losses, accs, weights = train_steps(order)
                     t_end = time.perf_counter_ns()
                 self.epoch_seconds.append((t_end - t) / 1e9)
                 if train_span is not None:  # the span times what epoch_seconds does, on its clock reads
@@ -160,8 +214,15 @@ class NodeClassification(BaseTask):
                 self.train_losses.append(loss_train)
                 acc_train = float(np.average(accs, weights=weights))
                 with span("sgl.task.eval"):
-                    acc_val = eval_on(val_idx)
-                    acc_test = eval_on(test_idx)
+                    sums = torch.stack([*eval_sums(split.val_idx, val_idx), *eval_sums(split.test_idx, test_idx)])
+                    if epoch + 1 < self._epochs:
+                        # drawn while the card runs the eval, which draws
+                        # nothing: the draws keep their order
+                        order = train_order()
+                    c_val, t_val, c_test, t_test = sums.tolist()
+                    count("sgl.task.host_sync", kind="read")
+                acc_val, acc_test = c_val / max(t_val, 1.0), c_test / max(t_test, 1.0)
+                self.epoch_accuracies.append((acc_train, acc_val, acc_test))
                 if self._verbose:
                     print(
                         f"Epoch: {epoch + 1:03d} loss_train: {loss_train:.4f} "
@@ -172,6 +233,7 @@ class NodeClassification(BaseTask):
                     best_val, best_test = acc_val, acc_test
                     self._on_best(net)
 
+        del split  # the indices leave the card before the postprocess
         with span("sgl.task.postprocess"):
             acc_val, acc_test = self._postprocess(net, labels, val_idx, test_idx)
         if acc_val > best_val:

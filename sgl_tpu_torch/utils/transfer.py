@@ -22,9 +22,12 @@ host arrays keep ``torch.as_tensor``.
 :class:`~sgl_tpu_torch.kernels.spmm_ooc.PinnedRing` is the out-of-core
 pipeline's staging too, and the host hop store's.
 
+:func:`to_device_nonblocking` sends a small host array that the host must
+not wait for (a batch order an epoch) in one pinned copy.
+
 While recording is on (``utils/profiling.py``) each upload of host data to
 a card adds its bytes to the counter ``sgl.h2d_bytes`` of the innermost
-open span, with ``kind="staged"`` or ``kind="direct"``.
+open span, with ``kind="staged"``, ``kind="direct"`` or ``kind="pinned"``.
 """
 
 from __future__ import annotations
@@ -68,6 +71,21 @@ def to_device(x, device: Union[str, torch.device], dtype: Optional[torch.dtype] 
         if _ring is None:
             _ring = PinnedRing(SLOTS, SLOT_BYTES)
         return _upload(x, device, dtype, _ring, STAGE_MIN_BYTES)
+
+
+def to_device_nonblocking(x: np.ndarray, device: Union[str, torch.device]) -> torch.Tensor:
+    """``torch.as_tensor(x, device=device)`` for a small host array, without
+    the host waiting for the card: ``x`` is copied into a pinned block of
+    torch's caching host allocator, which keeps the block until the copy
+    issued from it with ``non_blocking=True`` on the current stream has
+    run, so the caller may overwrite or drop ``x`` at once.  A CPU
+    ``device`` gets ``torch.as_tensor`` and no count."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.as_tensor(x, device=device)
+    out = torch.as_tensor(x).pin_memory().to(device, non_blocking=True)
+    count("sgl.h2d_bytes", out.nbytes, kind="pinned")
+    return out
 
 
 def _host_source(x):

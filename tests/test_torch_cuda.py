@@ -1104,3 +1104,54 @@ def test_the_shared_ring_stays_bounded_over_repeated_uploads(cuda):
             a = np.ones(int(2.5 * transfer.SLOT_BYTES) // np.dtype(dtype).itemsize, dtype)
             assert torch.equal(transfer.to_device(a, cuda), torch.as_tensor(a, device=cuda))
     assert transfer._ring.nbytes == transfer.SLOTS * transfer.SLOT_BYTES
+
+
+def test_a_jobs_epochs_sync_the_host_only_at_their_two_reads(cuda):
+    """Under torch's sync debug mode, each epoch of a mini-batch GAMLP job
+    (3 train batches, a wrapped tail, 2 + 3 eval batches) warns of no more
+    synchronizing operations than the two reads an epoch that the
+    ``sgl.task.host_sync`` counter counts: no hidden ``.item()`` or pageable
+    copy.  The epochs' share is the difference between a 4-epoch and a
+    1-epoch job on the same held model."""
+    import warnings
+
+    from sgl_tpu_torch.models import GAMLP
+    from sgl_tpu_torch.utils import clear_spans, recording, spans
+
+    ds = PlantedPartition()
+    model = GAMLP(3, ds.num_features, ds.num_classes, hidden_dim=64, num_layers=2)
+    kw = dict(lr=0.01, weight_decay=5e-5, device=cuda, seed=7, train_batch_size=64, eval_batch_size=100,
+              verbose=False)
+
+    def warned(epochs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                NodeClassification(ds, model, epochs=epochs, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    NodeClassification(ds, model, epochs=1, **kw)  # builds the layout, warms every shape
+    one, four = warned(1), warned(4)
+    assert four - one <= 2 * 3, (one, four)
+    clear_spans()
+    with recording():
+        NodeClassification(ds, model, epochs=2, **kw)
+    syncs = [r["counts"].get("sgl.task.host_sync", 0) for r in spans()
+             if r["name"] in ("sgl.task.train", "sgl.task.eval", "sgl.task.batch")]
+    clear_spans()
+    assert sum(syncs) == 2 * 2
+
+
+def test_a_nonblocking_upload_is_as_tensors_and_frees_its_array_at_once(cuda):
+    from sgl_tpu_torch.utils import profiling, transfer
+
+    a = np.random.default_rng(3).permutation(1 << 20)
+    want = torch.tensor(a)  # a copy: the array is overwritten below
+    with profiling.recording(), profiling.span("test.pinned") as rec:
+        got = transfer.to_device_nonblocking(a, cuda)
+    a[:] = -1  # at once: the copy may still run
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert rec["counts"] == {"sgl.h2d_bytes": want.nbytes, "sgl.h2d_bytes[kind=pinned]": want.nbytes}

@@ -98,11 +98,13 @@ def test_a_recorded_job_gives_the_task_tree_and_its_host_syncs(ds):
         total = collections.Counter()
         for r in under:
             total.update(r["counts"])
-        batches = 3 + 2 + 3
-        assert total["sgl.task.host_sync"] == 4 * batches
-        assert total["sgl.task.host_sync[kind=read]"] == total["sgl.task.host_sync[kind=upload]"] == 2 * batches
+        # two reads an epoch, one of the train steps' results and one of
+        # the eval sums; the batches are built on the device and wait for
+        # nothing
+        assert total["sgl.task.host_sync"] == total["sgl.task.host_sync[kind=read]"] == 2
+        assert train["counts"] == ev["counts"] == {"sgl.task.host_sync": 1, "sgl.task.host_sync[kind=read]": 1}
         for b in kids[train["id"]] + kids[ev["id"]]:
-            assert b["counts"] == {"sgl.task.host_sync": 2, "sgl.task.host_sync[kind=upload]": 2}
+            assert b["counts"] == {}
     assert all(r["stream_ms"] is None for r in recs)  # no CUDA in use
     assert len({r["id"] for r in recs}) == len(recs)
 

@@ -106,6 +106,7 @@ def test_an_input_on_the_target_device_is_returned_without_a_copy_or_a_count():
         got = transfer.to_device(a, CPU)
         assert got.data_ptr() == a.ctypes.data  # a view of the array, as torch.as_tensor gives
         assert transfer.to_device(t, CPU, torch.float64).dtype == torch.float64
+        assert transfer.to_device_nonblocking(a, CPU).data_ptr() == a.ctypes.data
     assert rec["counts"] == {}
 
 
