@@ -107,7 +107,7 @@ class SGAPModel:
         time objective).  The cache is keyed on the ``x`` object passed
         here, before any conversion."""
         with span("sgl.precompute", stream=True):
-            if hasattr(self.processed_feature, "rows"):
+            if self.host_store:
                 return
             if x is None:
                 x = graph.x
@@ -159,6 +159,12 @@ class SGAPModel:
             host_hops.agg = lambda stack: eager_aggregate(self.pre_msg_op, stack)
         self.processed_feature = host_hops
 
+    @property
+    def host_store(self) -> bool:
+        """Whether the feature cache is a host hop store (any store with
+        ``rows``), which gathers a batch's rows on the host."""
+        return hasattr(self.processed_feature, "rows")
+
     # -- stage 2: training network -----------------------------------------
     @property
     def net(self) -> SGAPNet:
@@ -177,7 +183,7 @@ class SGAPModel:
         along dim 1); a store with ``rows`` (a host hop store) gathers them."""
         if self.processed_feature is None:
             raise RuntimeError("call preprocess() before training")
-        if hasattr(self.processed_feature, "rows"):
+        if self.host_store:
             feats = self.processed_feature.rows(idx)
             if self.pre_msg_learnable and self.node_major and feats.dim() == 3:
                 feats = feats.movedim(0, 1)

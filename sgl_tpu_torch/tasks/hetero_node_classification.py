@@ -11,25 +11,19 @@ recorded at the best validation epoch.  It runs on the GPU unless
 from __future__ import annotations
 
 import time
-from typing import List
+from functools import partial
 
 import numpy as np
 import torch
 
 from sgl_tpu_torch.device import resolve_device
-from sgl_tpu_torch.tasks.base_task import BaseTask
-from sgl_tpu_torch.tasks.node_classification import _sync
-from sgl_tpu_torch.tasks.utils import (
-    adam_l2,
-    batch_iterator,
-    make_eval_step,
-    make_train_step,
-    set_seed,
-    weighted_cross_entropy,
-)
+from sgl_tpu_torch.tasks.node_classification import NodeTaskLoop, _order, _sync, eval_sums, train_epoch
+from sgl_tpu_torch.tasks.utils import set_seed, weighted_cross_entropy
+from sgl_tpu_torch.utils.profiling import span
+from sgl_tpu_torch.utils.transfer import to_device
 
 
-class HeteroNodeClassification(BaseTask):
+class HeteroNodeClassification(NodeTaskLoop):
     def __init__(
         self,
         dataset,
@@ -64,13 +58,10 @@ class HeteroNodeClassification(BaseTask):
         self._verbose = verbose
         #: wall seconds of ``model.preprocess`` (host sampling and device work)
         self.preprocess_seconds: float = 0.0
-        #: wall seconds of each epoch's training steps (device work included)
-        self.epoch_seconds: List[float] = []
         self._test_acc, self._subgraph_weight = self._execute(
             random_subgraph_num, subgraph_edge_type_num, subgraph_list, record_subgraph_weight
         )
 
-    test_acc = property(lambda self: self._test_acc)
     subgraph_weight = property(lambda self: self._subgraph_weight)
 
     def _execute(self, random_subgraph_num, subgraph_edge_type_num, subgraph_list, record_subgraph_weight):
@@ -94,57 +85,36 @@ class HeteroNodeClassification(BaseTask):
         if self._verbose:
             print(f"Preprocessing done in {self.preprocess_seconds:.4f}s")
 
-        labels_np = np.asarray(ds.data[self._predict_class].y).reshape(-1)
-        labels = torch.as_tensor(labels_np, dtype=torch.int64, device=device)
-        train_idx = np.asarray(ds.train_idx)
-        val_idx = np.asarray(ds.val_idx)
-        test_idx = np.asarray(ds.test_idx)
+        # the labels and the split's indices go to the device once a job
+        labels, train, val, test = (
+            to_device(np.asarray(a).reshape(-1), device, torch.int64)
+            for a in (ds.data[self._predict_class].y, ds.train_idx, ds.val_idx, ds.test_idx)
+        )
 
-        net = model.net.cpu()
-        model.init(init_gen)
-        net.to(device)
-        optimizer = adam_l2(net.parameters(), self._lr, self._weight_decay)
-        train_step = make_train_step(net, optimizer, self._loss_fn)
-        eval_step = make_eval_step(net)
+        net, train_step, eval_step = self._net_and_steps(model, init_gen)
 
-        def on_device(a):
-            return torch.as_tensor(a, device=device)
+        def train_order():
+            return _order(len(train), self._train_batch_size, np_rng, device)
 
-        def eval_on(idx):
-            correct, total = 0.0, 0.0
-            for b_idx, w in batch_iterator(idx, self._eval_batch_size, shuffle=False, rng=np_rng):
-                b = on_device(b_idx)
-                c, t = eval_step(model.batch_input(b), labels[b], on_device(w))
-                correct += float(c)
-                total += float(t)
-            return correct / max(total, 1.0)
+        def evaluate():
+            return [*eval_sums(eval_step, model, labels, val, self._eval_batch_size),
+                    *eval_sums(eval_step, model, labels, test, self._eval_batch_size)]
 
         best_val, best_test = 0.0, 0.0
         best_weight = None
+        order = train_order()
         for epoch in range(self._epochs):
-            t = time.perf_counter()
-            losses, accs, weights = [], [], []
-            for b_idx, w in batch_iterator(train_idx, self._train_batch_size, shuffle=True, rng=np_rng):
-                b = on_device(b_idx)
-                loss, acc = train_step(model.batch_input(b), labels[b], on_device(w), dropout_gen)
-                losses.append(float(loss))  # waits for the step to finish
-                accs.append(float(acc))
-                weights.append(float(w.sum()))
-            self.epoch_seconds.append(time.perf_counter() - t)
-            acc_val = eval_on(val_idx)
-            acc_test = eval_on(test_idx)
-            if self._verbose:
-                print(
-                    f"Epoch: {epoch + 1:03d} "
-                    f"loss_train: {np.average(losses, weights=weights):.4f} "
-                    f"acc_train: {np.average(accs, weights=weights):.4f} "
-                    f"acc_val: {acc_val:.4f} acc_test: {acc_test:.4f} "
-                    f"time: {time.perf_counter() - t:.4f}s"
-                )
-            if acc_val > best_val:
-                best_val, best_test = acc_val, acc_test
-                if record_subgraph_weight:
-                    best_weight = model.subgraph_weight()
+            with span("sgl.task.epoch"):
+                # the next order is drawn while the card runs the eval,
+                # which draws nothing: the draws keep their order
+                acc_val, acc_test, order = self._epoch(
+                    epoch, partial(train_epoch, train_step, model, labels, train, self._train_batch_size, order,
+                                   dropout_gen),
+                    evaluate, train_order)
+                if acc_val > best_val:
+                    best_val, best_test = acc_val, acc_test
+                    if record_subgraph_weight:
+                        best_weight = model.subgraph_weight()
         if self._verbose:
             print(f"Best val: {best_val:.4f}, best test: {best_test:.4f}")
         self.net = net

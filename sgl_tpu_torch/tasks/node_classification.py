@@ -10,6 +10,7 @@ GPU unless ``device="cpu"`` is passed, and raises when no GPU is present.
 from __future__ import annotations
 
 import time
+from functools import partial
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -87,7 +88,113 @@ def _batches(idx: torch.Tensor, batch_size: Optional[int], order=None, host_idx=
         yield b, w, kept, fb
 
 
-class NodeClassification(BaseTask):
+def train_epoch(train_step, model, labels: torch.Tensor, idx: torch.Tensor, batch_size: Optional[int], order,
+                dropout_gen: torch.Generator, host_idx=None):
+    """One epoch's train steps over a split's indices ``idx`` in ``order``
+    (:func:`_batches`' arguments; ``host_idx`` for a host hop store):
+    returns the steps' losses and accuracies, read in one copy after the
+    last step, and each batch's kept rows."""
+    steps, kept_rows = [], []
+    for b, w, kept, fb in _batches(idx, batch_size, order, host_idx):
+        steps.append(train_step(model.batch_input(fb), labels[b], w, dropout_gen))
+        kept_rows.append(float(kept))
+    losses, accs = zip(*steps)
+    losses, accs = torch.stack(losses + accs).view(2, -1).tolist()  # waits for the steps
+    count("sgl.task.host_sync", kind="read")
+    return losses, accs, kept_rows
+
+
+def eval_sums(eval_step, model, labels: torch.Tensor, idx: torch.Tensor, batch_size: Optional[int],
+              host_idx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A split's hits and weights over its indices ``idx`` in eval batches,
+    summed on the device (whole numbers, exact in f64) and not read."""
+    hits, weights = [], []
+    for b, w, _, fb in _batches(idx, batch_size, None, host_idx):
+        c, t = eval_step(model.batch_input(fb), labels[b], w)
+        hits.append(c)
+        weights.append(t)
+    return torch.stack(hits).double().sum(), torch.stack(weights).double().sum()
+
+
+def all_logits(net, model: SGAPModel, batch_size: Optional[int]) -> torch.Tensor:
+    """Every node's eval logits, in pieces of ``batch_size`` rows (None:
+    one piece), from this module's ``make_logits_fn`` as it stands at the
+    call."""
+    if model.host_store:
+        # a host hop store never enters the card whole: its rows are
+        # gathered a piece at a time (the logits are row-wise)
+        n = model.processed_feature.num_nodes
+        step = batch_size or n
+        logits = make_logits_fn(net)
+        return torch.cat([logits(model.batch_input(torch.arange(i, min(i + step, n))))
+                          for i in range(0, n, step)])
+    # every node's rows as cached, no gathered copy, inside the one call
+    return make_logits_fn(net, batch_size, model.row_dim)(model.processed_feature)
+
+
+class NodeTaskLoop(BaseTask):
+    """The records, the net and the epoch that the single-device node tasks
+    share.  A subclass sets the attributes these read (``_device``,
+    ``_lr``, ``_weight_decay``, ``_loss_fn``, ``_epochs``, ``_verbose``)
+    and runs each epoch through :meth:`_epoch`."""
+
+    def __init__(self):
+        super().__init__()
+        #: wall seconds of each epoch's training steps, ended by the read of
+        #: their losses, which waits for the card's work
+        self.epoch_seconds: List[float] = []
+        #: each epoch's mean training loss (weighted by the batches' rows)
+        self.train_losses: List[float] = []
+        #: each epoch's (train, validation, test) accuracy
+        self.epoch_accuracies: List[Tuple[float, float, float]] = []
+
+    test_acc = property(lambda self: self._test_acc)
+
+    def _net_and_steps(self, model, init_gen: torch.Generator):
+        """``model``'s net, its parameters drawn on the CPU from
+        ``init_gen`` (so every device starts from the same weights) and
+        moved to the device, with its train step (Adam with L2) and eval
+        step, from this module's factories as they stand at the call."""
+        net = model.net.cpu()
+        model.init(init_gen)
+        net.to(self._device)
+        optimizer = adam_l2(net.parameters(), self._lr, self._weight_decay)
+        return net, make_train_step(net, optimizer, self._loss_fn), make_eval_step(net)
+
+    def _epoch(self, epoch: int, train: Callable, evaluate: Callable, draw: Optional[Callable] = None):
+        """Epoch ``epoch``, recorded: ``train()`` runs its steps and returns
+        :func:`train_epoch`'s result; ``evaluate()`` launches the eval and
+        returns its sums on the device, the validation split's hits and
+        weights, then the test split's.  ``draw()``, given and another
+        epoch to come, runs while the card evaluates, before the eval's
+        read.  Returns ``(acc_val, acc_test, what draw() returned)``."""
+        with span("sgl.task.train") as train_span:
+            t = time.perf_counter_ns()
+            losses, accs, weights = train()
+            t_end = time.perf_counter_ns()
+        self.epoch_seconds.append((t_end - t) / 1e9)
+        if train_span is not None:  # the span times what epoch_seconds does, on its clock reads
+            train_span["start_ns"], train_span["end_ns"] = t, t_end
+        loss_train = float(np.average(losses, weights=weights))
+        self.train_losses.append(loss_train)
+        acc_train = float(np.average(accs, weights=weights))
+        with span("sgl.task.eval"):
+            sums = torch.stack(evaluate())
+            drawn = draw() if draw is not None and epoch + 1 < self._epochs else None
+            c_val, t_val, c_test, t_test = sums.tolist()
+            count("sgl.task.host_sync", kind="read")
+        acc_val, acc_test = c_val / max(t_val, 1.0), c_test / max(t_test, 1.0)
+        self.epoch_accuracies.append((acc_train, acc_val, acc_test))
+        if self._verbose:
+            print(
+                f"Epoch: {epoch + 1:03d} loss_train: {loss_train:.4f} "
+                f"acc_train: {acc_train:.4f} acc_val: {acc_val:.4f} "
+                f"acc_test: {acc_test:.4f} time: {(time.perf_counter_ns() - t) / 1e9:.4f}s"
+            )
+        return acc_val, acc_test, drawn
+
+
+class NodeClassification(NodeTaskLoop):
     def __init__(
         self,
         dataset,
@@ -124,19 +231,8 @@ class NodeClassification(BaseTask):
         self._precompute_dtype = precompute_dtype
         #: wall seconds of ``model.preprocess`` (device work included)
         self.preprocess_seconds: float = 0.0
-        #: wall seconds of each epoch's training steps, ended by the read of
-        #: their losses, which waits for the card's work
-        self.epoch_seconds: List[float] = []
-        #: each epoch's mean training loss (weighted by the batches' rows)
-        self.train_losses: List[float] = []
-        #: each epoch's (train, validation, test) accuracy
-        self.epoch_accuracies: List[Tuple[float, float, float]] = []
         with span("sgl.task.job"):
             self._test_acc = self._execute()
-
-    @property
-    def test_acc(self) -> float:
-        return self._test_acc
 
     # ------------------------------------------------------------------
     def _execute(self) -> float:
@@ -162,73 +258,32 @@ class NodeClassification(BaseTask):
         val_idx = np.asarray(ds.val_idx)
         test_idx = np.asarray(ds.test_idx)
         # a host hop store gathers its rows on the host, from host indices
-        host_rows = hasattr(model.processed_feature, "rows")
+        host_rows = model.host_store
 
         def train_order():
             return _order(len(train_idx), self._train_batch_size, np_rng, device)
 
-        net = model.net.cpu()
-        model.init(init_gen)
-        net.to(device)
-        optimizer = adam_l2(net.parameters(), self._lr, self._weight_decay)
-        train_step = make_train_step(net, optimizer, self._loss_fn)
-        eval_step = make_eval_step(net)
+        net, train_step, eval_step = self._net_and_steps(model, init_gen)
 
-        def train_steps(order):
-            """The epoch's steps in ``order``; returns their losses,
-            accuracies and kept rows, the first two read in one copy after
-            the last step."""
-            steps, kept_rows = [], []
-            for b, w, kept, fb in _batches(split.train_idx, self._train_batch_size, order,
-                                           train_idx if host_rows else None):
-                steps.append(train_step(model.batch_input(fb), labels[b], w, dropout_gen))
-                kept_rows.append(float(kept))
-            losses, accs = zip(*steps)
-            losses, accs = torch.stack(losses + accs).view(2, -1).tolist()  # waits for the steps
-            count("sgl.task.host_sync", kind="read")
-            return losses, accs, kept_rows
-
-        def eval_sums(idx, host_idx):
-            """The split's hits and weights, summed on the device (whole
-            numbers, exact in f64)."""
-            hits, weights = [], []
-            for b, w, _, fb in _batches(idx, self._eval_batch_size, None, host_idx if host_rows else None):
-                c, t = eval_step(model.batch_input(fb), labels[b], w)
-                hits.append(c)
-                weights.append(t)
-            return torch.stack(hits).double().sum(), torch.stack(weights).double().sum()
+        def evaluate():
+            return [*eval_sums(eval_step, model, labels, split.val_idx, self._eval_batch_size,
+                               val_idx if host_rows else None),
+                    *eval_sums(eval_step, model, labels, split.test_idx, self._eval_batch_size,
+                               test_idx if host_rows else None)]
 
         best_val, best_test = 0.0, 0.0
         t_total = time.perf_counter()
         order = train_order()
         for epoch in range(self._epochs):
             with span("sgl.task.epoch"):
-                with span("sgl.task.train") as train_span:
-                    t = time.perf_counter_ns()
-                    losses, accs, weights = train_steps(order)
-                    t_end = time.perf_counter_ns()
-                self.epoch_seconds.append((t_end - t) / 1e9)
-                if train_span is not None:  # the span times what epoch_seconds does, on its clock reads
-                    train_span["start_ns"], train_span["end_ns"] = t, t_end
-                loss_train = float(np.average(losses, weights=weights))
-                self.train_losses.append(loss_train)
-                acc_train = float(np.average(accs, weights=weights))
-                with span("sgl.task.eval"):
-                    sums = torch.stack([*eval_sums(split.val_idx, val_idx), *eval_sums(split.test_idx, test_idx)])
-                    if epoch + 1 < self._epochs:
-                        # drawn while the card runs the eval, which draws
-                        # nothing: the draws keep their order
-                        order = train_order()
-                    c_val, t_val, c_test, t_test = sums.tolist()
-                    count("sgl.task.host_sync", kind="read")
-                acc_val, acc_test = c_val / max(t_val, 1.0), c_test / max(t_test, 1.0)
-                self.epoch_accuracies.append((acc_train, acc_val, acc_test))
-                if self._verbose:
-                    print(
-                        f"Epoch: {epoch + 1:03d} loss_train: {loss_train:.4f} "
-                        f"acc_train: {acc_train:.4f} acc_val: {acc_val:.4f} "
-                        f"acc_test: {acc_test:.4f} time: {(time.perf_counter_ns() - t) / 1e9:.4f}s"
-                    )
+                # the next order is drawn while the card runs the eval,
+                # which draws nothing: the draws keep their order.  No name
+                # keeps the steps' arguments past the call, so the split's
+                # indices leave the card before the postprocess
+                acc_val, acc_test, order = self._epoch(
+                    epoch, partial(train_epoch, train_step, model, labels, split.train_idx, self._train_batch_size,
+                                   order, dropout_gen, train_idx if host_rows else None),
+                    evaluate, train_order)
                 if acc_val > best_val:
                     best_val, best_test = acc_val, acc_test
                     self._on_best(net)
@@ -251,18 +306,13 @@ class NodeClassification(BaseTask):
         as it stands (subclasses keep best-epoch outputs)."""
 
     def _all_logits(self, net) -> torch.Tensor:
-        """Every node's eval logits, in pieces of the eval batch."""
-        ds, model = self._dataset, self._model
-        if hasattr(model.processed_feature, "rows"):
-            # a host hop store never enters the card whole: its rows go in
-            # pieces of the eval batch (the logits are row-wise)
-            all_idx = torch.arange(ds.num_node, device=self._device)
-            logits = make_logits_fn(net)
-            step = self._eval_batch_size or self._train_batch_size or ds.num_node
-            return torch.cat([logits(model.batch_input(all_idx[i:i + step]))
-                              for i in range(0, ds.num_node, step)])
-        # every node's rows as cached, no gathered copy, inside the one call
-        return make_logits_fn(net, self._eval_batch_size, model.row_dim)(model.processed_feature)
+        """Every node's eval logits, in pieces of the eval batch (of the
+        train batch for a host hop store, which never enters the card
+        whole)."""
+        batch = self._eval_batch_size
+        if batch is None and self._model.host_store:
+            batch = self._train_batch_size
+        return all_logits(net, self._model, batch)
 
     def _postprocess(self, net, labels, val_idx, test_idx):
         ds, model, device = self._dataset, self._model, self._device

@@ -15,23 +15,16 @@ masks.  On the card every propagation runs the CSR kernel at width
 from __future__ import annotations
 
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
 from sgl_tpu_torch.device import resolve_device
-from sgl_tpu_torch.tasks.base_task import BaseTask
-from sgl_tpu_torch.tasks.node_classification import _sync
-from sgl_tpu_torch.tasks.utils import (
-    adam_l2,
-    add_labels,
-    batch_iterator,
-    make_eval_step,
-    make_logits_fn,
-    make_train_step,
-    set_seed,
-    weighted_cross_entropy,
-)
+from sgl_tpu_torch.tasks.node_classification import NodeTaskLoop, _order, _sync, all_logits, eval_sums, train_epoch
+from sgl_tpu_torch.tasks.utils import add_labels, set_seed, weighted_cross_entropy
+from sgl_tpu_torch.utils.profiling import span
+from sgl_tpu_torch.utils.transfer import to_device
 
 
 def reuse_labels(model, net, graph, features: np.ndarray, unlabeled, num_classes: int, device,
@@ -40,13 +33,12 @@ def reuse_labels(model, net, graph, features: np.ndarray, unlabeled, num_classes
     node (in pieces of ``batch_size`` rows) replace the label columns of the
     ``unlabeled`` rows of ``features`` (in place, on the host), then
     ``model`` propagates the result again."""
-    pred = make_logits_fn(net, batch_size, model.row_dim)(model.processed_feature)
-    soft = torch.softmax(pred, dim=-1).cpu().numpy()
+    soft = torch.softmax(all_logits(net, model, batch_size), dim=-1).cpu().numpy()
     features[unlabeled, -num_classes:] = soft[unlabeled]
     model.preprocess(graph, features, device=device)
 
 
-class NodeClassificationWithLabelUse(BaseTask):
+class NodeClassificationWithLabelUse(NodeTaskLoop):
     def __init__(
         self,
         dataset,
@@ -88,18 +80,18 @@ class NodeClassificationWithLabelUse(BaseTask):
         self.propagate_seconds = []
         self._test_acc = self._execute()
 
-    test_acc = property(lambda self: self._test_acc)
-
     def _execute(self) -> float:
         ds, model, device = self._dataset, self._model, self._device
         init_gen = set_seed(self._seed)
         dropout_gen = torch.Generator(device=device).manual_seed(self._seed)
         np_rng = np.random.default_rng(self._seed)
         labels_np = np.asarray(ds.y).reshape(-1)
-        labels = torch.as_tensor(labels_np, dtype=torch.int64, device=device)
         train_idx = np.asarray(ds.train_idx)
         val_idx = np.asarray(ds.val_idx)
         test_idx = np.asarray(ds.test_idx)
+        # the labels and the split's indices go to the device once a job
+        labels, train, val, test = (to_device(a, device, torch.int64)
+                                    for a in (labels_np, train_idx, val_idx, test_idx))
         num_classes = ds.num_classes
 
         # parameters for the label-augmented feature width
@@ -109,24 +101,11 @@ class NodeClassificationWithLabelUse(BaseTask):
             else np.asarray(ds.x)
         )
         model.preprocess(ds.graph, features0, device=device)
-        net = model.net.cpu()
-        model.init(init_gen)
-        net.to(device)
-        optimizer = adam_l2(net.parameters(), self._lr, self._weight_decay)
-        train_step = make_train_step(net, optimizer, self._loss_fn)
-        eval_step = make_eval_step(net)
+        net, train_step, eval_step = self._net_and_steps(model, init_gen)
 
-        def on_device(a):
-            return torch.as_tensor(a, device=device)
-
-        def eval_on(idx):
-            correct, total = 0.0, 0.0
-            for b_idx, w in batch_iterator(idx, self._eval_batch_size, shuffle=False, rng=np_rng):
-                b = on_device(b_idx)
-                c, t = eval_step(model.batch_input(b), labels[b], on_device(w))
-                correct += float(c)
-                total += float(t)
-            return correct / max(total, 1.0)
+        def evaluate():
+            return [*eval_sums(eval_step, model, labels, val, self._eval_batch_size),
+                    *eval_sums(eval_step, model, labels, test, self._eval_batch_size)]
 
         best_val, best_test = 0.0, 0.0
         train_pred_idx = train_idx
@@ -135,6 +114,8 @@ class NodeClassificationWithLabelUse(BaseTask):
                 mask = np_rng.random(train_idx.shape[0]) < self._mask_rate
                 train_labels_idx = train_idx[mask]
                 train_pred_idx = train_idx[~mask]
+                # the subset to predict goes to the device in one copy
+                train = to_device(train_pred_idx, device, torch.int64)
                 features = add_labels(ds.x, labels_np, train_labels_idx, num_classes)
             else:
                 features = np.asarray(ds.x)
@@ -151,38 +132,20 @@ class NodeClassificationWithLabelUse(BaseTask):
             if self._verbose:
                 print(f"Feature Propagate done in {self.propagate_seconds[-1]:.4f}s")
 
-            t = time.perf_counter()
-            losses, accs, weights = [], [], []
-            for b_idx, w in batch_iterator(
-                train_pred_idx, self._train_batch_size, shuffle=True, rng=np_rng
-            ):
-                b = on_device(b_idx)
-                loss, acc = train_step(model.batch_input(b), labels[b], on_device(w), dropout_gen)
-                losses.append(float(loss))
-                accs.append(float(acc))
-                weights.append(float(w.sum()))
-            acc_val = eval_on(val_idx)
-            acc_test = eval_on(test_idx)
-            if self._verbose:
-                print(
-                    f"Epoch: {epoch + 1:03d} "
-                    f"loss_train: {np.average(losses, weights=weights):.4f} "
-                    f"acc_train: {np.average(accs, weights=weights):.4f} "
-                    f"acc_val: {acc_val:.4f} acc_test: {acc_test:.4f} "
-                    f"time: {time.perf_counter() - t:.4f}s"
-                )
-            if acc_val > best_val:
-                best_val, best_test = acc_val, acc_test
+            # drawn after the mask, as the masks and shuffles have always
+            # drawn from the one generator
+            order = _order(len(train_pred_idx), self._train_batch_size, np_rng, device)
+            with span("sgl.task.epoch"):
+                acc_val, acc_test, _ = self._epoch(
+                    epoch, partial(train_epoch, train_step, model, labels, train, self._train_batch_size, order,
+                                   dropout_gen),
+                    evaluate)
+                if acc_val > best_val:
+                    best_val, best_test = acc_val, acc_test
 
         # post-process, with the model's optional post-propagation
-        outputs = make_logits_fn(net, self._eval_batch_size, model.row_dim)(model.processed_feature)
-        pred = model.postprocess(ds.graph, outputs).argmax(dim=1)
-
-        def acc(idx):
-            idx = on_device(idx)
-            return float((pred[idx] == labels[idx]).float().mean())
-
-        acc_val, acc_test = acc(val_idx), acc(test_idx)
+        pred = model.postprocess(ds.graph, all_logits(net, model, self._eval_batch_size)).argmax(dim=1)
+        acc_val, acc_test = ((pred[i] == labels[i]).float().mean().item() for i in (val, test))
         if acc_val > best_val:
             best_val, best_test = acc_val, acc_test
         if self._verbose:

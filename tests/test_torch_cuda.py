@@ -1106,6 +1106,28 @@ def test_the_shared_ring_stays_bounded_over_repeated_uploads(cuda):
     assert transfer._ring.nbytes == transfer.SLOTS * transfer.SLOT_BYTES
 
 
+def _epoch_sync_warnings(job) -> int:
+    """The synchronizing operations that ``job(epochs)``'s epochs warn of,
+    under torch's sync debug mode: the difference between a 4-epoch and a
+    1-epoch job, after a job that builds the layout and warms every
+    shape."""
+    import warnings
+
+    def warned(epochs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                job(epochs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    job(1)
+    one, four = warned(1), warned(4)
+    return four - one
+
+
 def test_a_jobs_epochs_sync_the_host_only_at_their_two_reads(cuda):
     """Under torch's sync debug mode, each epoch of a mini-batch GAMLP job
     (3 train batches, a wrapped tail, 2 + 3 eval batches) warns of no more
@@ -1113,8 +1135,6 @@ def test_a_jobs_epochs_sync_the_host_only_at_their_two_reads(cuda):
     ``sgl.task.host_sync`` counter counts: no hidden ``.item()`` or pageable
     copy.  The epochs' share is the difference between a 4-epoch and a
     1-epoch job on the same held model."""
-    import warnings
-
     from sgl_tpu_torch.models import GAMLP
     from sgl_tpu_torch.utils import clear_spans, recording, spans
 
@@ -1122,20 +1142,8 @@ def test_a_jobs_epochs_sync_the_host_only_at_their_two_reads(cuda):
     model = GAMLP(3, ds.num_features, ds.num_classes, hidden_dim=64, num_layers=2)
     kw = dict(lr=0.01, weight_decay=5e-5, device=cuda, seed=7, train_batch_size=64, eval_batch_size=100,
               verbose=False)
-
-    def warned(epochs):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                NodeClassification(ds, model, epochs=epochs, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return sum("synchroniz" in str(w.message) for w in caught)
-
-    NodeClassification(ds, model, epochs=1, **kw)  # builds the layout, warms every shape
-    one, four = warned(1), warned(4)
-    assert four - one <= 2 * 3, (one, four)
+    syncs = _epoch_sync_warnings(lambda epochs: NodeClassification(ds, model, epochs=epochs, **kw))
+    assert syncs <= 2 * 3, syncs
     clear_spans()
     with recording():
         NodeClassification(ds, model, epochs=2, **kw)
@@ -1143,6 +1151,25 @@ def test_a_jobs_epochs_sync_the_host_only_at_their_two_reads(cuda):
              if r["name"] in ("sgl.task.train", "sgl.task.eval", "sgl.task.batch")]
     clear_spans()
     assert sum(syncs) == 2 * 2
+
+
+def test_a_hetero_jobs_epochs_sync_the_host_only_at_their_two_reads(cuda):
+    """As above for a mini-batch NARS_SIGN job, which shares the task loop:
+    2 train batches and 2 + 2 eval batches an epoch, each split with a
+    wrapped tail."""
+    from sgl_tpu_torch.datasets import SyntheticHeteroDataset
+    from sgl_tpu_torch.models import NARS_SIGN
+    from sgl_tpu_torch.tasks import HeteroNodeClassification
+
+    ds = SyntheticHeteroDataset(seed=1)
+
+    def job(epochs):
+        HeteroNodeClassification(ds, "paper", NARS_SIGN(2, 16, ds.num_classes, 16, 2, 2), lr=0.05, weight_decay=5e-5,
+                                 epochs=epochs, device=cuda, seed=7, train_batch_size=32, eval_batch_size=16,
+                                 random_subgraph_num=2, subgraph_edge_type_num=2, verbose=False)
+
+    syncs = _epoch_sync_warnings(job)
+    assert syncs <= 2 * 3, syncs
 
 
 def test_a_nonblocking_upload_is_as_tensors_and_frees_its_array_at_once(cuda):

@@ -46,6 +46,19 @@ CPU = torch.device("cpu")
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tests at one torch intra-op thread.  A streaming product
+    of thousands of parts runs a few tiny CPU ops a part, and each op opens
+    a parallel region that, with other processes busy on the machine's
+    cores, waits for threads it cannot get.  The count is restored for the
+    next module in the process."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rel(got, want) -> float:
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     return float(np.abs(got - want).max() / np.abs(want).max())
