@@ -9,7 +9,9 @@ control that has to come out not correct.  ``half_batch`` (train cells):
 the reference in plain float32 whose loss is the mean over the first half
 of each batch.  ``f32``: the reference in plain float32, a sound run.
 Each seed prints one JSON line: the numbers, the limits and the verdict.
-The benchmark's own runs never run this.
+The cell's inputs, reference features and compared rows are reached
+through ``harness.Cell`` and the judge, as a run reaches them.  The
+benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -32,24 +34,17 @@ def control_run(root: Path, workload: str, seed: int, variant: str, device) -> d
     if str(BENCH) not in sys.path:
         sys.path.insert(0, str(BENCH))
     import harness
-    import inputs as bench_inputs
     import judge
-    import reference
 
     prec, half = VARIANTS[variant]
-    man = harness.Manifest(root)
-    wl = man.workload(workload)
-    cfg_path = root / man.config(wl["config"])["file"]
-    cfg = harness.load_json(cfg_path)
-    traffic = harness.load_json(man.data_dir() / "traffic" / f"{wl['traffic']}.json")
-    limits = harness.load_json(man.data_dir() / "limits" / f"{workload}.json")
-    model = reference.ModelRef(harness.load_module(cfg_path.with_suffix(".py"), f"cfg_{wl['config']}"), cfg)
+    cell = harness.Cell(root, workload)
+    cfg, limits, model = cell.cfg, cell.limits, cell.model_ref
     t0 = time.perf_counter()
-    inputs = bench_inputs.make_inputs(cfg, seed, device)
-    idx = judge.sample_rows(inputs, seed)
-    feats = judge.candidate_features(model, cfg, inputs, device, prec)
+    inputs = cell.make_inputs(seed, device)
+    idx = judge.sample_rows(model, inputs, seed)
+    feats = judge.candidate_features(model, inputs, device, prec)
     cand = {"full": feats, "samples": [model.rows(feats, torch.as_tensor(idx, device=device)).cpu()], "train": None}
-    if traffic["kind"] == "train":
+    if cell.traffic["kind"] == "train":
         r = judge.reference_run(model, cfg, inputs, feats, harness.job_seed(seed, 0), prec, device, idx,
                                 half_batch=half)
         cand["train"] = r

@@ -1,14 +1,24 @@
 """One run of one cell: inputs from the seed, set-up, the measured window,
 an optional traced sub-window, the comparison that decides ``correct``
 and the metrics.  Everything a cell needs is found by name from
-``BENCHMARK.json``:
+``BENCHMARK.json`` (:class:`Cell`):
 
 * the configuration's ``file`` (``configs/<config>.json``) and the plain
-  reference beside it (``configs/<config>.py``);
+  reference beside it (``configs/<config>.py``), which may bring the
+  inputs, the reference's cached features and the rows compared
+  (``reference.ModelRef.hook``);
+* ``entries/<config>.py``, where present: how the configuration enters the
+  program, ``dataset(cfg, inputs)`` (the program's dataset over the
+  inputs) and ``task_args(cfg, dataset)`` (task arguments derived from
+  it, once in set-up);
+* the configuration's ``task`` group, where present: the task class of
+  ``sgl_tpu_torch.tasks`` that a train job constructs (``class``) and its
+  further keyword arguments (``args``); without it ``NodeClassification``;
 * ``traffic/<traffic>.json``: the parameters of the one runner of its
-  ``kind`` (``preprocess``: calls of ``SGAPModel.preprocess``; ``train``:
-  ``NodeClassification`` jobs);
-* ``metrics/<metric>.py``: a reader ``read(run) -> float | None``;
+  ``kind`` (``preprocess``: calls of ``SGAPModel.preprocess`` on one
+  graph; ``train``: jobs of the configuration's task);
+* ``metrics/<metric>.py``: a reader ``read(run) -> float | None``, handed
+  the run's namespace, the cell's configuration in it as ``run.cfg``;
 * ``limits/<workload>.json``: the limit of each number compared;
 
 the data files under the first of ``paths``, the code beside this file.
@@ -49,8 +59,11 @@ def load_json(path: Path):
 
 
 def load_module(path: Path, name: str):
+    """The module of the file ``path`` as ``name``, entered in
+    ``sys.modules`` (which a dataclass of the module's looks up)."""
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
     spec.loader.exec_module(module)
     return module
 
@@ -90,23 +103,79 @@ class Manifest:
         return self.root / self.data["paths"][0]
 
 
+def _on_path() -> None:
+    if str(BENCH_DIR) not in sys.path:
+        sys.path.insert(0, str(BENCH_DIR))
+
+
+class Cell:
+    """One workload as its files give it: the manifest's entries, the
+    configuration, its traffic, limits and plain reference (``model_ref``)
+    and its entry into the program (``entry``, or None), with the hooks
+    each may bring and the defaults that stand in for them."""
+
+    def __init__(self, root: Path, workload: str):
+        _on_path()
+        import reference
+
+        self.root, self.name = Path(root), workload
+        self.man = Manifest(self.root)
+        self.workload = self.man.workload(workload)
+        config = self.workload["config"]
+        path = self.root / self.man.config(config)["file"]
+        self.cfg = load_json(path)
+        self.files = self.man.data_dir()
+        self.traffic = load_json(self.files / "traffic" / f"{self.workload['traffic']}.json")
+        self.limits = load_json(self.files / "limits" / f"{workload}.json")
+        self.model_ref = reference.ModelRef(load_module(path.with_suffix(".py"), f"cfg_{config}"), self.cfg)
+        entry = self.files / "entries" / f"{config}.py"
+        self.entry = load_module(entry, f"entry_{config}") if entry.is_file() else None
+
+    def make_inputs(self, seed: int, device):
+        import inputs as bench_inputs
+
+        make = self.model_ref.hook("make_inputs")
+        return make(seed, device) if make else bench_inputs.make_inputs(self.cfg, seed, device)
+
+    def dataset(self, inputs):
+        import inputs as bench_inputs
+
+        build = getattr(self.entry, "dataset", None)
+        return build(self.cfg, inputs) if build else bench_inputs.bench_dataset(inputs)
+
+    def task(self, ds):
+        """The train job's task class and its keyword arguments beyond the
+        training settings every task takes."""
+        from sgl_tpu_torch import tasks
+
+        spec = self.cfg.get("task", {})
+        derive = getattr(self.entry, "task_args", None)
+        args = dict(spec.get("args", {}), **(derive(self.cfg, ds) if derive else {}))
+        return getattr(tasks, spec.get("class", "NodeClassification")), args
+
+
 def job_seed(seed: int, j: int) -> int:
     return (seed + j) % SEED_SPACE
 
 
 class JobRecorder:
-    """Records, while armed, what the judge reads of one
-    ``NodeClassification`` job: the parameters at its start, its first
-    three losses, Adam's first gradient (from its state after one step),
-    the parameters after three steps and at its first eval, that eval's
-    counts, and the sampled rows of the logits of its last forward over
-    every node with the parameters it ran with.  It wraps the task's step
+    """Records, while armed, what the judge reads of one job of a node task
+    (``NodeClassification`` or any that reaches the same step factories
+    through ``NodeTaskLoop._net_and_steps``): the parameters at its start,
+    its first three losses, Adam's first gradient (from its state after
+    one step), the parameters after three steps and at its first eval,
+    that eval's counts, and the sampled rows of the logits of its last
+    forward over every row with the parameters it ran with, where the task
+    runs one.  Armed or not, it counts the rows each kind of step runs
+    (``rows``: ``train``, ``eval``, ``forward`` over every row), from
+    which the window's model FLOPs are counted.  It wraps the task's step
     factories from the benchmark's side."""
 
-    def __init__(self, n_eval_batches: int, num_nodes: int, sample_idx):
-        self.n_eval, self.num_nodes, self.sample_idx = n_eval_batches, num_nodes, sample_idx
+    def __init__(self, n_eval_batches: int, num_rows: int, sample_idx):
+        self.n_eval, self.num_rows, self.sample_idx = n_eval_batches, num_rows, sample_idx
         self.armed = False
         self.record = None
+        self.rows = dict.fromkeys(("train", "eval", "forward"), 0)
 
     @contextlib.contextmanager
     def installed(self):
@@ -120,8 +189,14 @@ class JobRecorder:
         def params_of(net):
             return {n: p.detach().clone() for n, p in net.named_parameters()}
 
+        def counted(kind, step):
+            def run(feats, labels, *a, **k):
+                rec.rows[kind] += labels.shape[0]
+                return step(feats, labels, *a, **k)
+            return run
+
         def train_factory(net, optimizer, *args, **kwargs):
-            step = make_train(net, optimizer, *args, **kwargs)
+            step = counted("train", make_train(net, optimizer, *args, **kwargs))
             if not rec.armed:
                 return step
             r = rec.record
@@ -144,7 +219,7 @@ class JobRecorder:
             return recorded
 
         def eval_factory(net, *args, **kwargs):
-            step = make_eval(net, *args, **kwargs)
+            step = counted("eval", make_eval(net, *args, **kwargs))
             if not rec.armed:
                 return step
             r = rec.record
@@ -160,13 +235,14 @@ class JobRecorder:
 
         def logits_factory(net, *args, **kwargs):
             fn = make_logits(net, *args, **kwargs)
-            if not rec.armed:
-                return fn
-            r = rec.record
 
             def recorded(feats):
                 out = fn(feats)
-                if "logits_rows" not in r and out.shape[0] == rec.num_nodes:
+                rec.rows["forward"] += out.shape[0]
+                if not rec.armed:
+                    return out
+                r = rec.record
+                if "logits_rows" not in r and out.shape[0] == rec.num_rows:
                     r["logits_params"] = params_of(net)
                     r["logits_rows"] = out[rec.sample_idx].cpu()
                 return out
@@ -192,9 +268,9 @@ class Runner:
     """What every traffic kind shares: the model factory, the rows kept of
     every unit, and the window."""
 
-    def __init__(self, cfg, traffic, ds, inputs, model_ref, sample_idx, device, seed):
-        self.cfg, self.traffic, self.ds, self.inputs = cfg, traffic, ds, inputs
-        self.model_ref, self.device, self.seed = model_ref, device, seed
+    def __init__(self, cell: Cell, ds, inputs, sample_idx, device, seed):
+        self.cell, self.cfg, self.traffic, self.model_ref = cell, cell.cfg, cell.traffic, cell.model_ref
+        self.ds, self.inputs, self.device, self.seed = ds, inputs, device, seed
         self.sample_idx = torch.as_tensor(sample_idx, device=device)
         self.samples = []
         self.unit_seconds = []
@@ -224,8 +300,9 @@ class Runner:
 
 
 class PreprocessRunner(Runner):
-    """Calls of ``model.preprocess(graph, x)``, each ended by a
-    synchronize.  ``adjacency``: ``cold`` builds a fresh model a call (the
+    """Calls of ``model.preprocess(graph, x)`` on the dataset's one graph,
+    each ended by a synchronize (in the window, with ``ahead_s``, sent
+    ahead: :meth:`window`).  ``adjacency``: ``cold`` builds a fresh model a call (the
     normalization, the sort and the CSR each time), ``held`` keeps one
     model, whose layout set-up builds.  ``features``: ``host`` passes the
     dataset's numpy ``x`` as the task does, ``card`` a CUDA tensor made in
@@ -236,6 +313,11 @@ class PreprocessRunner(Runner):
         self.feats = self.ds.x if t["features"] == "host" else torch.as_tensor(self.ds.x, device=self.device)
         self.model = self.make_model() if t["adjacency"] == "held" else None
         self.unit()
+        self.depth = 0  # calls sent ahead in the window; 0: each waited for
+        if t.get("ahead_s") and self.device.type == "cuda":
+            s = time.perf_counter()
+            self.unit()
+            self.depth = max(1, math.ceil(float(t["ahead_s"]) / (time.perf_counter() - s)))
         self.samples.clear()
 
     def unit(self) -> None:
@@ -245,6 +327,34 @@ class PreprocessRunner(Runner):
         self.model.preprocess(self.ds.graph, self.feats, device=self.device)
         sync(self.device)
         self.keep_rows(self.model)
+
+    def window(self, seconds: float) -> float:
+        """With the traffic's ``ahead_s`` (on a card): calls dispatched
+        without a wait each, the host waiting only for the call sent
+        ``depth`` calls before (``ahead_s`` seconds of calls, timed in
+        set-up), so that a stall of the host leaves the card fed; each
+        call's sampled rows go to pinned host memory without a wait.  When
+        the time is up nothing more is sent, all that was sent is waited
+        for and the clock is read after that wait.  ``unit_seconds`` are
+        then the card's, between the calls' ends."""
+        if not self.depth:
+            return super().window(seconds)
+        ends = [torch.cuda.Event(enable_timing=True)]
+        ends[0].record()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            self.model.preprocess(self.ds.graph, self.feats, device=self.device)
+            rows = self.model_ref.rows(self.model.processed_feature, self.sample_idx)
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            self.samples.append(host.copy_(rows, non_blocking=True))
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+            if len(ends) > self.depth + 1:
+                ends[-1 - self.depth].synchronize()
+        sync(self.device)
+        window_s = time.perf_counter() - t0
+        self.unit_seconds = [a.elapsed_time(b) / 1e3 for a, b in zip(ends, ends[1:])]
+        return window_s
 
     def stats(self) -> dict:
         return dict(units=len(self.unit_seconds), unit_seconds=list(self.unit_seconds))
@@ -261,29 +371,31 @@ class PreprocessRunner(Runner):
 
 
 class TrainRunner(Runner):
-    """Back-to-back ``NodeClassification`` jobs at the configuration's
-    training settings on one held model (its adjacency layout kept), job
-    ``j`` seeded ``seed + j``; set-up runs a one-epoch job, which warms
-    every shape a job uses."""
+    """Back-to-back jobs of the configuration's task (``Cell.task``;
+    ``NodeClassification`` by default) at its training settings on one
+    held model (its adjacency layout kept, where the task keeps one), job
+    ``j`` seeded ``seed + j``; set-up derives the task's arguments and
+    runs a one-epoch job, which warms every shape a job uses."""
 
     def setup(self) -> None:
         val = sum(1 for _ in _batches(self.inputs.val_idx, self.cfg["eval_batch_size"]))
         test = sum(1 for _ in _batches(self.inputs.test_idx, self.cfg["eval_batch_size"]))
         self.recorder = self.patches.enter_context(
-            JobRecorder(val + test, self.inputs.num_nodes, self.sample_idx).installed())
+            JobRecorder(val + test, self.inputs.num_rows, self.sample_idx).installed())
+        self.task_class, self.task_args = self.cell.task(self.ds)
         self.model = self.make_model()
         self.jobs, self.epoch_seconds = 0, []
         self.job(epochs=1, seed=job_seed(self.seed, 999_983))
         self.samples.clear()
         self.epoch_seconds.clear()
+        self.recorder.rows = dict.fromkeys(self.recorder.rows, 0)
 
     def job(self, epochs: int, seed: int):
-        from sgl_tpu_torch.tasks import NodeClassification
-
         c = self.cfg
-        task = NodeClassification(self.ds, self.model, lr=c["lr"], weight_decay=c["weight_decay"], epochs=epochs,
-                                  device=self.device, seed=seed, train_batch_size=c["train_batch_size"],
-                                  eval_batch_size=c["eval_batch_size"], verbose=False)
+        task = self.task_class(self.ds, model=self.model, lr=c["lr"], weight_decay=c["weight_decay"],
+                               epochs=epochs, device=self.device, seed=seed,
+                               train_batch_size=c["train_batch_size"], eval_batch_size=c["eval_batch_size"],
+                               verbose=False, **self.task_args)
         sync(self.device)
         self.epoch_seconds.extend(task.epoch_seconds)
         self.keep_rows(self.model)
@@ -300,12 +412,13 @@ class TrainRunner(Runner):
 
     def stats(self) -> dict:
         return dict(units=len(self.unit_seconds), unit_seconds=list(self.unit_seconds),
-                    epochs=len(self.epoch_seconds), epoch_seconds=list(self.epoch_seconds))
+                    epochs=len(self.epoch_seconds), epoch_seconds=list(self.epoch_seconds),
+                    rows=dict(self.recorder.rows))
 
     def host_bytes(self) -> int:
-        """Bytes a job hands the program on the host: ``x``, which its
-        precompute uploads."""
-        return self.ds.x.nbytes
+        """Bytes a job hands the program on the host (the inputs' own
+        count)."""
+        return self.inputs.host_bytes
 
     def candidate(self) -> dict:
         return dict(full=self.model.processed_feature, samples=self.samples, train=self.recorder.result())
@@ -333,27 +446,16 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
              chips: int = 1) -> dict:
     """One run of ``workload``: returns the result line's object, with
     the numbers compared (``checks``) last."""
-    if str(BENCH_DIR) not in sys.path:
-        sys.path.insert(0, str(BENCH_DIR))
+    cell = Cell(root, workload)
     import inputs as bench_inputs
     import judge
-    import reference
     import roofline
 
-    man = Manifest(root)
-    wl = man.workload(workload)
-    cfg_entry = man.config(wl["config"])
-    cfg_path = root / cfg_entry["file"]
-    cfg = load_json(cfg_path)
-    files = man.data_dir()
-    traffic = load_json(files / "traffic" / f"{wl['traffic']}.json")
-    limits = load_json(files / "limits" / f"{workload}.json")
-    model_ref = reference.ModelRef(load_module(cfg_path.with_suffix(".py"), f"cfg_{wl['config']}"), cfg)
-
-    inputs = bench_inputs.make_inputs(cfg, seed, device)
-    ds = bench_inputs.bench_dataset(inputs)
-    sample_idx = judge.sample_rows(inputs, seed)
-    runner = RUNNERS[traffic["kind"]](cfg, traffic, ds, inputs, model_ref, sample_idx, device, seed)
+    cfg, traffic, limits, model_ref = cell.cfg, cell.traffic, cell.limits, cell.model_ref
+    inputs = cell.make_inputs(seed, device)
+    ds = cell.dataset(inputs)
+    sample_idx = judge.sample_rows(model_ref, inputs, seed)
+    runner = RUNNERS[traffic["kind"]](cell, ds, inputs, sample_idx, device, seed)
     try:
         runner.setup()
         sync(device)
@@ -395,18 +497,19 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
 
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     run = SimpleNamespace(
-        kind=traffic["kind"], setup_s=setup_s, window_s=window_s, peak_window_bytes=window_peak,
+        kind=traffic["kind"], cfg=cfg, setup_s=setup_s, window_s=window_s, peak_window_bytes=window_peak,
         trace=summary, peaks=roofline.peaks_for(kind),
-        spmm=dict(n=inputs.num_nodes, nnz=len(inputs.src) + inputs.num_nodes, d=cfg["num_features"],
-                  hops=cfg["model_args"]["prop_steps"]),
-        flops=(roofline.job_flops(model_ref.flops_per_row(), cfg, inputs) * stats["units"]
-               if traffic["kind"] == "train" else None),
+        # the SpMM of a precompute over the default inputs' one graph
+        spmm=(dict(n=inputs.num_nodes, nnz=len(inputs.src) + inputs.num_nodes, d=cfg["num_features"],
+                   hops=cfg["model_args"]["prop_steps"]) if isinstance(inputs, bench_inputs.Inputs) else None),
+        flops=(roofline.job_flops(model_ref.flops_per_row(), stats["rows"]) if traffic["kind"] == "train"
+               else None),
         **stats,
     )
     group = "per_layer" if trace else "end_to_end"
     metrics = {}
-    for m in man.metrics(workload, group):
-        value = load_module(files / "metrics" / f"{m['name']}.py", f"metric_{m['name']}").read(run)
+    for m in cell.man.metrics(workload, group):
+        value = load_module(cell.files / "metrics" / f"{m['name']}.py", f"metric_{m['name']}").read(run)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     hop_limit = limits.get("hop_err", math.inf)

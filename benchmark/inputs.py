@@ -8,6 +8,25 @@ so that a change to the port's writers cannot change the benchmark's data.
 The graph and the features are drawn on the card, in a few large calls.
 ``Inputs`` holds the arrays both sides are handed: the program gets them
 through :func:`bench_dataset`, the plain reference reads them directly.
+
+A configuration may bring inputs of its own (``make_inputs(cfg, seed,
+device)`` in its ``configs/<config>.py``) and the program's dataset over
+them (``dataset(cfg, inputs)`` in ``entries/<config>.py``).  Of an inputs
+object the harness and the judge read only:
+
+* ``num_rows``: the rows of the cached feature (the predict class's nodes
+  of a heterogeneous graph);
+* ``y``: those rows' labels (int64);
+* ``train_idx``, ``val_idx``, ``test_idx``: the split, as indices into
+  those rows;
+* ``host_bytes``: the bytes on the host that a train job hands the
+  program and its precompute uploads.
+
+The rest (``num_nodes``, ``src``, ``dst``, ``x`` here) is read by the
+configuration's own hooks, or by the defaults that stand in for them:
+:func:`bench_dataset`, the judge's hops of one normalized adjacency and
+its degree-ranked sample of rows, and the ``preprocess`` runner, which
+takes one graph.
 """
 
 from __future__ import annotations
@@ -31,6 +50,15 @@ class Inputs:
     train_idx: np.ndarray
     val_idx: np.ndarray
     test_idx: np.ndarray
+
+    @property
+    def num_rows(self) -> int:
+        return self.num_nodes
+
+    @property
+    def host_bytes(self) -> int:
+        """``x``, which a job's precompute uploads."""
+        return self.x.nbytes
 
 
 def _generator(rng, device) -> torch.Generator:

@@ -20,7 +20,10 @@ The numbers:
 
 * ``hop_err``: the widest gap of the cached features (every row of the
   last unit, the sampled rows of every unit) from the float64 reference,
-  over the reference's largest magnitude (per hop for a hop stack);
+  over the reference's largest magnitude: of the whole matrix, or of each
+  ``(N, D)`` block of a stack, rows on its second-to-last axis (per hop of
+  a ``(K+1, N, D)`` hop stack, per hop and subset of a ``(K+1, S, N, D)``
+  one);
 * ``init_gap``: the start against the reference's draw (exact, limit 0);
 * ``loss1_gap`` / ``loss_gap``: the gap of the first step's loss / the
   widest of the three steps', over the larger of the step's reference
@@ -36,9 +39,16 @@ The numbers:
 * ``logits_gap``: the widest gap of the sampled rows' logits of the job's
   last forward over every node (``logits_rows``), over the reference's
   largest, with the reference's forward run from the parameters that
-  forward ran with (``logits_params``).
+  forward ran with (``logits_params``); none where the task runs no such
+  forward (``HeteroNodeClassification``), so a limit on it fails there.
 The eval forward is the one stage the reference follows from the
 program's state (``PERF.md``).
+
+The rows compared and the reference's cached features are the
+configuration's hooks where its reference module defines them
+(``sample_rows``, ``reference_features``; ``reference.ModelRef.hook``),
+else the defaults here; the judge and ``control.py`` both reach them
+through :func:`sample_rows` and :func:`candidate_features`.
 """
 
 from __future__ import annotations
@@ -55,10 +65,16 @@ import reference as ref
 RECORDED_STEPS = 3
 
 
-def sample_rows(inputs, seed: int, count: int = 4096, hubs: int = 64) -> np.ndarray:
-    """The rows compared in every unit: the ``hubs`` rows of most
-    nonzeros (their products are cut into segments) and uniform draws
-    from the seed, sorted."""
+def sample_rows(model, inputs, seed: int) -> np.ndarray:
+    """The rows compared in every unit: the configuration's own, or
+    :func:`hub_and_uniform_rows` of one graph."""
+    hook = model.hook("sample_rows")
+    return hook(inputs, seed) if hook else hub_and_uniform_rows(inputs, seed)
+
+
+def hub_and_uniform_rows(inputs, seed: int, count: int = 4096, hubs: int = 64) -> np.ndarray:
+    """The ``hubs`` rows of most nonzeros (their products are cut into
+    segments) and uniform draws from the seed, sorted."""
     deg = np.bincount(inputs.dst, minlength=inputs.num_nodes)
     top = np.argsort(deg, kind="stable")[-hubs:]
     rest = np.setdiff1d(np.arange(inputs.num_nodes), top)
@@ -67,26 +83,31 @@ def sample_rows(inputs, seed: int, count: int = 4096, hubs: int = 64) -> np.ndar
     return np.sort(np.concatenate([top, draw]))
 
 
-def candidate_features(model, cfg: dict, inputs, device, prec: str):
-    """The cached features as the reference computes them in ``prec``."""
+def candidate_features(model, inputs, device, prec: str):
+    """The cached features as the reference computes them in ``prec``: the
+    configuration's own, or the hops of one normalized adjacency."""
+    hook = model.hook("reference_features")
+    if hook:
+        return hook(inputs, device, prec)
     adj = ref.normalized_adjacency(inputs, device, prec)
-    hop_list = ref.hops(adj, inputs.x, cfg["model_args"]["prop_steps"], prec)
+    hop_list = ref.hops(adj, inputs.x, model.cfg["model_args"]["prop_steps"], prec)
     del adj
     return model.cached(hop_list)
 
 
 def _feature_gap(cand, want) -> float:
-    """Per hop for a stack (``(K+1, N, D)``), else over the whole matrix."""
-    if want.dim() == 3:
+    """Per ``(N, D)`` block for a stack, else over the whole matrix."""
+    if want.dim() >= 3:
+        cand, want = (t.reshape(-1, *t.shape[-2:]) for t in (cand, want))
         return max(ref.gap(cand[k], want[k], float(want[k].abs().max())) for k in range(want.shape[0]))
     return ref.gap(cand, want, float(want.abs().max()))
 
 
-def _scaled_rows(want, idx):
-    """The reference's rows ``idx`` and, per hop, its largest magnitude."""
-    if want.dim() == 3:
-        return want[:, idx], want.abs().amax(dim=(1, 2))[:, None, None]
-    return want[idx], want.abs().max()
+def _scaled_rows(model, want, idx):
+    """The reference's rows ``idx`` and, per ``(N, D)`` block, its largest
+    magnitude."""
+    scale = want.abs().amax(dim=(-2, -1), keepdim=True) if want.dim() >= 3 else want.abs().max()
+    return model.rows(want, idx), scale
 
 
 def steps_per_epoch(cfg: dict, inputs) -> int:
@@ -127,8 +148,8 @@ def _logits(model, params: dict, feats, sample_idx, prec: str):
 def judge(cand: dict, model, cfg: dict, inputs, sample_idx, device) -> tuple:
     """The numbers of ``cand`` against the float64 reference, and the
     ``hop_err`` of each unit's sampled rows."""
-    want = candidate_features(model, cfg, inputs, device, "f64")
-    want_rows, scale = _scaled_rows(want, torch.as_tensor(sample_idx, device=device))
+    want = candidate_features(model, inputs, device, "f64")
+    want_rows, scale = _scaled_rows(model, want, torch.as_tensor(sample_idx, device=device))
     unit_errs = [float(((rows.to(device).double() - want_rows).abs() / scale).max()) for rows in cand["samples"]]
     numbers = {"hop_err": max([_feature_gap(cand["full"].to(device), want)] + unit_errs)}
     if cand.get("train") is not None:
@@ -174,9 +195,7 @@ def _train_numbers(got: dict, model, cfg: dict, inputs, want, device, sample_idx
         numbers["eval_gap"] = math.inf
     else:
         numbers["eval_gap"] = max(abs(a[0] - b[0]) / b[1] for a, b in zip(got["eval_counts"], eval_ref))
-    if "logits_rows" not in got:
-        numbers["logits_gap"] = math.inf
-    else:
+    if "logits_rows" in got:
         want_logits = _logits(model, {k: v.to(device).double() for k, v in got["logits_params"].items()}, want,
                               sample_idx, "f64")
         numbers["logits_gap"] = ref.gap(got["logits_rows"].to(device), want_logits, float(want_logits.abs().max()))

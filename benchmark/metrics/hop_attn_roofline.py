@@ -2,46 +2,20 @@
 job's epochs: its least time over the stream ms of the
 sgl.hop_token.attention spans there, in percent.
 
-The least time is counted here, from the cell's configuration and the
-program's token counter, so the share reads the same work whatever
-implements the sublayer: ``T`` tokens a layer (the sgl.hop_tokens counter,
-rows × (K+1) a forward, times ``num_layers``), ``h`` wide in ``H`` heads;
-the larger of its ``8·T·h² + 4·T·(K+1)·h`` FLOPs at the card's f32 peak and
-its least bytes at the HBM rate: ``T·h·4`` in and out, the ``4h²·4`` bytes
-of the q/k/v and output weights a span, and in training ``T·H·(K+1)``
-bytes of dropout bits.  The configuration is the one of the ``--workload``
-on the run's command line, in the manifest of the checkout this file lies
-in: the namespace that ``harness.run_cell`` hands a reader carries no
-configuration, and once it does this reader should take the widths from
-there and drop :func:`model_args`.  None off the card, without the spans
-or the counter, or without a configuration of that shape (so a call from
-another process's command line reads None)."""
+The least time is counted here, from the cell's configuration (``run.cfg``,
+its ``model_args``) and the program's token counter, so the share reads
+the same work whatever implements the sublayer: ``T`` tokens a layer (the
+sgl.hop_tokens counter, rows × (K+1) a forward, times ``num_layers``),
+``h`` wide in ``H`` heads; the larger of its ``8·T·h² + 4·T·(K+1)·h``
+FLOPs at the card's f32 peak and its least bytes at the HBM rate:
+``T·h·4`` in and out, the ``4h²·4`` bytes of the q/k/v and output weights
+a span, and in training ``T·H·(K+1)`` bytes of dropout bits.  None off the
+card, without the spans or the counter, or without a configuration of
+that shape."""
 
-import argparse
-import sys
-from pathlib import Path
-
-import harness
 import program_spans as ps
 
-ROOT = Path(__file__).resolve().parents[2]
 NAME = "sgl.hop_token.attention"
-
-
-def model_args(argv=None):
-    """The ``model_args`` of the cell named by ``--workload`` in ``argv``
-    (the run's command line), or None."""
-    ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--workload")
-    workload = ap.parse_known_args(sys.argv[1:] if argv is None else argv)[0].workload
-    if workload is None:
-        return None
-    man = harness.Manifest(ROOT)
-    try:
-        cfg = harness.load_json(ROOT / man.config(man.workload(workload)["config"])["file"])
-    except KeyError:
-        return None
-    return cfg.get("model_args")
 
 
 def least_seconds(args: dict, peaks: dict, tokens: int, train_tokens: int, spans: int) -> float:
@@ -55,7 +29,7 @@ def least_seconds(args: dict, peaks: dict, tokens: int, train_tokens: int, spans
 
 
 def read(run):
-    args = model_args()
+    args = run.cfg.get("model_args")
     trees = ps.unit_trees(run, "train")
     if run.peaks is None or not trees or not args or "num_heads" not in args:
         return None

@@ -1,7 +1,7 @@
 """The program's count of host syncs an epoch (the sgl.task.host_sync
-counter: each blocking read of a loss, an accuracy or an eval sum, and each
-pageable upload of a batch's indices or weights), the mean over the traced
-job's epochs."""
+counter: each blocking read of the steps' results; since the task loop
+builds its batches on the card, two an epoch, the train steps' losses and
+accuracies and the eval's sums), the mean over the traced job's epochs."""
 
 import program_spans as ps
 

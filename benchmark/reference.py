@@ -1,12 +1,13 @@
 """The plain reference the benchmark judges the program by: plain PyTorch,
 importing nothing of the program and taking nothing it made.
 
-It works out again, from the inputs the seed made (``data.Inputs``), what
-the program derives: the normalized adjacency ``D^-1/2 (A + I) D^-1/2``,
-its hops, a configuration's initial parameters, batch order and dropout
-bits, its train steps (weighted cross-entropy, backward, Adam with an L2
-term) and its eval forward.  The model of each configuration is the
-``configs/<name>.py`` beside its file; this module holds what they share.
+It works out again, from the inputs the seed made (``inputs.Inputs``, or
+a configuration's own), what the program derives: the normalized
+adjacency ``D^-1/2 (A + I) D^-1/2``, its hops, a configuration's initial
+parameters, batch order and dropout bits, its train steps (weighted
+cross-entropy, backward, Adam with an L2 term) and its eval forward.  The
+model of each configuration is the ``configs/<name>.py`` beside its file;
+this module holds what they share.
 
 ``prec`` is ``"f64"`` for the judge; ``"tf32"`` for the control, float32
 whose every product (matmuls, the SpMM) takes operands rounded to TF32's
@@ -175,10 +176,23 @@ def train_steps(model, params: dict, feats, labels, batches, drop_gen, lr: float
 class ModelRef:
     """A configuration's reference module (``configs/<name>.py``) bound to
     its sizes: ``init(gen)``, ``forward(params, feats, train, gen, prec)``,
-    ``rows(feats, idx)``, ``cached(hop_list)``, ``flops_per_row()``."""
+    ``rows(feats, idx)``, ``cached(hop_list)``, ``flops_per_row()``, and
+    the hooks the module may define in place of the benchmark's defaults
+    (:meth:`hook`): ``make_inputs(cfg, seed, device)``,
+    ``reference_features(cfg, inputs, device, prec)`` (then ``cached`` is
+    not needed) and ``sample_rows(cfg, inputs, seed)``."""
+
+    HOOKS = ("make_inputs", "reference_features", "sample_rows")
 
     def __init__(self, module, cfg: dict):
         self.module, self.cfg = module, cfg
+
+    def hook(self, name: str):
+        """The module's ``name`` bound to the configuration, or None where
+        the module leaves it to the default."""
+        assert name in self.HOOKS, name
+        fn = getattr(self.module, name, None)
+        return None if fn is None else (lambda *args: fn(self.cfg, *args))
 
     def init(self, gen) -> dict:
         return self.module.init(self.cfg, gen)

@@ -1,7 +1,7 @@
 """A checkout of the benchmark's data files at tiny shapes, for the CPU
-tests: the manifest and every traffic mix, limit and metric reader as
-committed, each configuration cut to a few thousand nodes with its
-published widths replaced by small ones.  Each configuration brings its
+tests: the manifest and every configuration's entry into the program,
+traffic mix, limit and metric reader as committed, each configuration cut
+to a few thousand nodes with its published widths replaced by small ones.  Each configuration brings its
 tiny shape as data, ``<config>.tiny.json`` beside its ``<config>.json``,
 so one added as files and entries alone is shrunk too."""
 
@@ -17,6 +17,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[2]
 BENCH = REPO / "benchmark"
+DATA_DIRS = ("configs", "entries", "traffic", "limits", "metrics")  # what a cell's entries name
 for p in (str(REPO), str(BENCH)):
     if p not in sys.path:
         sys.path.insert(0, p)
@@ -29,8 +30,9 @@ def make_tiny_root(tmp: Path, source: Path = REPO) -> Path:
     beside them).  A configuration without a tiny shape raises: the CPU
     tests never run one at its full size."""
     data = tmp / "benchmark"
-    for sub in ("configs", "traffic", "limits", "metrics"):
-        shutil.copytree(source / "benchmark" / sub, data / sub)
+    for sub in DATA_DIRS:
+        if (source / "benchmark" / sub).is_dir():
+            shutil.copytree(source / "benchmark" / sub, data / sub)
     shutil.copy(source / "BENCHMARK.json", tmp / "BENCHMARK.json")
     for entry in json.loads((tmp / "BENCHMARK.json").read_text())["configs"]:
         path = tmp / entry["file"]
@@ -49,3 +51,25 @@ def run_tiny(root: Path, workload: str, seed: int = 12345, trace: bool = False) 
     import harness
 
     return harness.run_cell(root, workload, seed, 0.01, trace, torch.device("cpu"), time.perf_counter())
+
+
+def job_rows(root: Path, workload: str, seed: int = 5) -> list:
+    """The rows a train cell's steps ran (``harness.JobRecorder.rows``)
+    after its set-up and after each of two window jobs, on the CPU."""
+    import harness
+    import judge
+
+    cell = harness.Cell(root, workload)
+    cpu = torch.device("cpu")
+    inputs = cell.make_inputs(seed, cpu)
+    runner = harness.TrainRunner(cell, cell.dataset(inputs), inputs, judge.sample_rows(cell.model_ref, inputs, seed),
+                                 cpu, seed)
+    try:
+        runner.setup()
+        out = [runner.stats()["rows"]]
+        for _ in range(2):
+            runner.unit()
+            out.append(runner.stats()["rows"])
+        return out
+    finally:
+        runner.close()

@@ -1,6 +1,7 @@
 """Each cell end to end at a tiny shape through ``sgl_tpu_torch`` on the
-CPU, judged against the plain reference; the traced mode; the run's exits
-where no card is present and in a directory that holds only the benchmark."""
+CPU, judged against the plain reference; what the five cells read, held
+bit for bit to a record; the traced mode; the run's exits where no card is
+present and in a directory that holds only the benchmark."""
 
 from __future__ import annotations
 
@@ -16,6 +17,12 @@ from bench_tiny import REPO, make_tiny_root, run_tiny
 
 MAN = json.loads((REPO / "BENCHMARK.json").read_text())
 WORKLOADS = [w["name"] for w in MAN["workloads"]]
+# each cell's ``correct``, ``checks`` (values and limits), the judge's other
+# readings and the names of the metrics reported, on two seeds, as the
+# harness read them before a configuration could bring its own inputs, task
+# and reference features; at two torch threads, since the CPU's float sums
+# follow the thread count
+TINY_READINGS = json.loads((REPO / "benchmark/tests/tiny_readings.json").read_text())
 
 
 @pytest.fixture(scope="module")
@@ -34,6 +41,24 @@ def test_cell_runs_correct_at_a_tiny_shape(tiny_root, workload):
     assert set(out["metrics"]) == want - {"peak_mem_gib"} and "setup_s" in want and len(want) >= 2
     for c in out["checks"].values():
         assert c["value"] <= c["limit"]
+
+
+@pytest.mark.parametrize("workload,seed", [(w, s) for w in sorted(TINY_READINGS) for s in sorted(TINY_READINGS[w])])
+def test_cell_reads_bit_for_bit_what_it_read_before_the_hooks(tiny_root, workload, seed, capsys):
+    """A cell that brings no hooks runs the defaults, which draw the same
+    inputs and judge them as before: every number equal, not merely close."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        out = run_tiny(tiny_root, workload, seed=int(seed))
+    finally:
+        torch.set_num_threads(threads)
+    line = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("readings: ")][-1]
+    got = {"correct": out["correct"], "checks": out["checks"], "readings": json.loads(line[len("readings: "):]),
+           "metrics": sorted(out["metrics"])}
+    assert got == TINY_READINGS[workload][seed]
 
 
 @pytest.mark.parametrize("workload", ["sgc_reddit.preprocess", "gamlp_products.train"])

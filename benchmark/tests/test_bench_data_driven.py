@@ -1,7 +1,9 @@
 """A configuration, a traffic mix, a metric and a cell added as files and
 entries alone are found by name, and a configuration added at its full
 size is shrunk by the tiny shape it brings: no file of the benchmark is
-edited."""
+edited.  So is a configuration that brings its own inputs, dataset, task
+and reference features: NARS_SIGN on a heterogeneous graph
+(``nars_fixture/``, laid out as the files it adds under ``benchmark/``)."""
 
 from __future__ import annotations
 
@@ -10,8 +12,9 @@ import json
 import shutil
 
 import pytest
+import torch
 
-from bench_tiny import BENCH, REPO, make_tiny_root, run_tiny
+from bench_tiny import BENCH, DATA_DIRS, REPO, job_rows, make_tiny_root, run_tiny
 
 
 def _digest() -> str:
@@ -104,3 +107,61 @@ def test_a_config_without_a_tiny_shape_is_refused(tmp_path):
     full = _full_checkout_with_a_config(tmp_path / "full", "sgc_bare", "preprocess", None)
     with pytest.raises(FileNotFoundError, match="'sgc_bare'"):
         make_tiny_root(tmp_path / "tiny", source=full)
+
+
+HETERO = BENCH / "tests/nars_fixture"
+
+
+def _checkout_with_the_hetero_config(tmp):
+    """A tiny checkout: the committed data files plus ``nars_fixture/``'s
+    configuration, plain reference, tiny shape, entry into the program and
+    limits, its one cell and the cell in the train metrics' lists."""
+    full = tmp / "full"
+    for sub in DATA_DIRS:
+        if (BENCH / sub).is_dir():
+            shutil.copytree(BENCH / sub, full / "benchmark" / sub)
+    shutil.copytree(HETERO, full / "benchmark", dirs_exist_ok=True)
+    man = json.loads((REPO / "BENCHMARK.json").read_text())
+    man["configs"].append({"name": "nars_fixture", "source": "https://arxiv.org/abs/2011.09679",
+                           "file": "benchmark/configs/nars_fixture.json", "reduced": [], "why": "test"})
+    man["workloads"].append({"name": "nars_fixture.train", "config": "nars_fixture", "traffic": "train", "chips": 1,
+                             "why": "test"})
+    for m in man["end_to_end"] + man["per_layer"]:
+        if m["name"] in ("epoch_ms", "train_steps_ms"):
+            m["workloads"].append("nars_fixture.train")
+    (full / "BENCHMARK.json").write_text(json.dumps(man))
+    return make_tiny_root(tmp / "tiny", source=full)
+
+
+def test_a_heterogeneous_config_joins_as_files_and_entries_alone(tmp_path):
+    """NARS_SIGN over three node types and three relations, features on
+    papers alone, three fixed relation subsets: the run builds its own
+    inputs, a ``HeteroNodeDataset`` and a ``HeteroNodeClassification`` job,
+    records it as the homogeneous jobs, and is judged against the
+    reference's ``(K+1, S, N_pred, D)`` stack and steps; the task runs no
+    forward over every row, so no ``logits_gap`` is read or limited.  The
+    controls: the f32 reference in the program's place is correct, TF32's
+    and the half batch's are not."""
+    import control
+
+    before = _digest()
+    root = _checkout_with_the_hetero_config(tmp_path)
+    cfg = json.loads((root / "benchmark/configs/nars_fixture.json").read_text())
+    assert cfg["node_types"]["paper"] == 1500 and cfg["model_class"] == "NARS_SIGN"
+
+    out = run_tiny(root, "nars_fixture.train", seed=2**31 + 29)
+    assert out["correct"], out["checks"]
+    assert out["failed"] == 0 and out["attempted"] >= 1
+    assert set(out["checks"]) == {"hop_err", "init_gap", "loss_gap", "grad_gap", "change_gap"}
+    assert set(out["metrics"]) == {"epoch_ms", "setup_s"}
+    # the FLOPs counted are of the rows the task ran: 2 epochs of 3 train
+    # batches of 256 (700 rows) and 1 + 2 eval batches of 400 (300 and 500
+    # rows), and no forward over every row
+    want = {"train": 2 * 768, "eval": 2 * 1100, "forward": 0}
+    assert job_rows(root, "nars_fixture.train") == [dict.fromkeys(want, 0), want, {k: 2 * v for k, v in want.items()}]
+    for variant, correct in (("f32", True), ("tf32", False), ("half_batch", False)):
+        for seed in (4, 2**31 + 31):
+            r = control.control_run(root, "nars_fixture.train", seed, variant, torch.device("cpu"))
+            assert r["correct"] is correct, (variant, seed, r["numbers"])
+    assert _digest() == before
+    assert "nars_fixture" not in (REPO / "BENCHMARK.json").read_text()

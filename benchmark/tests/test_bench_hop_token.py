@@ -2,7 +2,8 @@
 (``hop_attn_ms``, ``hop_ffn_ms``, ``hop_attn_roofline``) on hand-built span
 stores and fake runs: what they read, what they leave out, and that each
 gives nothing where the program has no such span or counter, off the card,
-or without the cell's configuration."""
+or without a configuration of the transformer's shape in ``run.cfg``; and
+that a run hands every reader its cell's configuration."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from bench_tiny import BENCH, REPO
+from bench_tiny import BENCH, REPO, make_tiny_root, run_tiny
 
 import harness
 from sgl_tpu_torch.utils import profiling
@@ -63,8 +64,9 @@ def store(monkeypatch):
     return s
 
 
-def fake_run(busy=0.5, peaks=PEAKS):
-    return SimpleNamespace(kind="train", trace={"units": 1, "busy_s": busy, "window_s": 1.0}, peaks=peaks)
+def fake_run(busy=0.5, peaks=PEAKS, args=ARGS):
+    return SimpleNamespace(kind="train", trace={"units": 1, "busy_s": busy, "window_s": 1.0}, peaks=peaks,
+                           cfg={"model_args": args})
 
 
 def test_the_sublayer_times_are_the_epochs_spans_a_mean_epoch(store):
@@ -75,10 +77,9 @@ def test_the_sublayer_times_are_the_epochs_spans_a_mean_epoch(store):
     assert module("hop_ffn_ms").read(fake_run()) == pytest.approx(3 * 2.0 + 2 * 100.0)
 
 
-def test_the_roofline_counts_the_work_from_the_tokens_and_the_widths(store, monkeypatch):
+def test_the_roofline_counts_the_work_from_the_tokens_and_the_widths(store):
     store.job(epochs=2, attn=1.0)
     m = module("hop_attn_roofline")
-    monkeypatch.setattr(m, "model_args", lambda: ARGS)
     h, t = 512, 8
     tokens, train_tokens, spans = 2 * (3 * 8_000 + 2 * 800_000), 2 * 3 * 8_000, 2 * 5
     flops = tokens * (8 * h * h + 4 * t * h)
@@ -96,10 +97,8 @@ def test_the_roofline_counts_the_work_from_the_tokens_and_the_widths(store, monk
 
 
 @pytest.mark.parametrize("name", ["hop_attn_ms", "hop_ffn_ms", "hop_attn_roofline"])
-def test_nothing_to_read_gives_nothing(store, monkeypatch, name):
+def test_nothing_to_read_gives_nothing(store, name):
     m = module(name)
-    if name == "hop_attn_roofline":
-        monkeypatch.setattr(m, "model_args", lambda: ARGS)
     store.job(spans=False)  # a program without the spans: the parent's
     assert m.read(fake_run()) is None
     store.records.clear()
@@ -109,23 +108,46 @@ def test_nothing_to_read_gives_nothing(store, monkeypatch, name):
     store.job()
     assert m.read(fake_run()) is not None
     assert m.read(fake_run(busy=0.0)) is None
-    assert m.read(SimpleNamespace(kind="preprocess", trace=fake_run().trace, peaks=PEAKS)) is None
+    assert m.read(SimpleNamespace(kind="preprocess", trace=fake_run().trace, peaks=PEAKS, cfg={})) is None
 
 
-def test_the_roofline_reads_nothing_without_peaks_or_the_cells_configuration(store, monkeypatch):
+def test_the_roofline_reads_nothing_without_peaks_or_the_cells_configuration(store):
     store.job()
     m = module("hop_attn_roofline")
-    assert m.read(fake_run()) is None  # pytest's command line names no workload
-    monkeypatch.setattr(m, "model_args", lambda: ARGS)
+    assert m.read(fake_run()) is not None
     assert m.read(fake_run(peaks=None)) is None
-    monkeypatch.setattr(m, "model_args", lambda: {"prop_steps": 3, "feat_dim": 100})  # another model's
-    assert m.read(fake_run()) is None
+    assert m.read(fake_run(args=None)) is None  # no model_args
+    assert m.read(fake_run(args={"prop_steps": 3, "feat_dim": 100})) is None  # another model's
 
 
-def test_the_configuration_is_the_workloads_of_the_command_line():
+def test_the_roofline_reads_the_widths_of_the_runs_configuration(store):
+    """The widths are ``run.cfg``'s, whatever the process's command line
+    names: the committed NAGphormer configuration's reading is the formula
+    at its widths, and another width reads another share."""
+    store.job(epochs=2, attn=1.0)
     m = module("hop_attn_roofline")
     cfg = json.loads((REPO / "benchmark/configs/nagphormer_products.json").read_text())
-    argv = ["--workload", "nagphormer_products.train", "--seed", "1", "--seconds", "20", "--trace", "1"]
-    assert m.model_args(argv) == cfg["model_args"]
-    assert m.model_args(["--seed", "1"]) is None
-    assert m.model_args(["--workload", "no_such.cell"]) is None
+    run = SimpleNamespace(kind="train", trace=fake_run().trace, peaks=PEAKS, cfg=cfg)
+    tokens, train_tokens, spans = 2 * (3 * 8_000 + 2 * 800_000), 2 * 3 * 8_000, 2 * 5
+    least = m.least_seconds(cfg["model_args"], PEAKS, tokens, train_tokens, spans)
+    assert m.read(run) == pytest.approx(100 * least / (2 * (3 * 1.0 + 2 * 50.0) / 1e3))
+    assert m.read(run) == m.read(fake_run(args=cfg["model_args"]))
+    wider = dict(cfg, model_args=dict(cfg["model_args"], hidden_dim=1024))
+    assert m.read(SimpleNamespace(**dict(vars(run), cfg=wider))) > m.read(run)
+
+
+def test_every_reader_is_handed_the_cells_configuration(tmp_path):
+    """A reader added as a file reads ``run.cfg`` in an in-process run: the
+    configuration of the cell, at its tiny shape."""
+    root = make_tiny_root(tmp_path)
+    (root / "benchmark/metrics/cfg_hops.py").write_text(
+        "def read(run):\n    return float(run.cfg['model_args']['prop_steps'])\n")
+    man = json.loads((root / "BENCHMARK.json").read_text())
+    man["per_layer"].append({"name": "cfg_hops", "unit": "count", "better": "lower", "source": "program_span",
+                             "layer": "test", "moves": "epoch_ms"})
+    (root / "BENCHMARK.json").write_text(json.dumps(man))
+    for workload in ("nagphormer_products.train", "sgc_reddit.preprocess"):
+        cfg = json.loads((root / man["configs"][[c["name"] for c in man["configs"]].index(
+            workload.split(".")[0])]["file"]).read_text())
+        out = run_tiny(root, workload, seed=2**31 + 3, trace=True)
+        assert out["metrics"]["cfg_hops"]["value"] == cfg["model_args"]["prop_steps"]

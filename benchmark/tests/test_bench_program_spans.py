@@ -130,15 +130,17 @@ def test_no_number_from_a_program_without_the_span_api(monkeypatch, name):
 
 def test_a_traced_tiny_job_on_the_cpu_leaves_its_spans_for_the_readers(tmp_path):
     """The traced sub-window turns recording on through the profiler alone:
-    the readers find the job's epochs and count 4 host syncs a batch (2
-    uploads, 2 reads); GAMLP's tiny shape has 4 train batches (1,800 rows
-    of 500) and 2 + 3 eval batches (700 and 1,500 rows of 600)."""
+    the readers find the job's epochs and count 2 host syncs an epoch, the
+    train steps' read and the eval's read, whatever the batches (GAMLP's
+    tiny shape has 4 train batches, 1,800 rows of 500, and 2 + 3 eval
+    batches, 700 and 1,500 rows of 600): the task loop builds its batches
+    on the card and reads their results twice an epoch."""
     profiling.clear_spans()
     root = make_tiny_root(tmp_path)
     out = run_tiny(root, "gamlp_products.train", seed=2**31 + 5, trace=True)
     assert out["correct"], out["checks"]
     run = SimpleNamespace(kind="train", trace={"units": 1, "busy_s": 1.0})
-    assert reader("host_syncs.epoch")(run) == 4 * (4 + 2 + 3)
+    assert reader("host_syncs.epoch")(run) == 2
     for name in ("eval_ms", "batch_prep_ms", "job_fixed_ms"):
         assert reader(name)(run) > 0
     recs = profiling.spans()

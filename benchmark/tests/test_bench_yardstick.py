@@ -9,6 +9,7 @@ import json
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -33,6 +34,11 @@ def test_spmm_least_time_against_hand_counts():
     assert roofline.spmm_least_seconds(PEAKS, n, e, d) == pytest.approx(want)
     # a tiny shape by hand: 3 rows, 4 nonzeros, 2 columns
     assert roofline.spmm_least_seconds(PEAKS, 3, 4, 2) == pytest.approx((16 + 32 + 48) / 3.35e12)
+    # a call's hops, none off the card or for inputs of no one graph (a configuration's own)
+    run = SimpleNamespace(peaks=PEAKS, spmm=dict(n=3, nnz=4, d=2, hops=2))
+    assert roofline.hops_least_seconds(run) == 2 * roofline.spmm_least_seconds(PEAKS, 3, 4, 2)
+    assert roofline.hops_least_seconds(SimpleNamespace(peaks=None, spmm=run.spmm)) is None
+    assert roofline.hops_least_seconds(SimpleNamespace(peaks=PEAKS, spmm=None)) is None
 
 
 def test_model_flops_against_hand_counts():
@@ -47,15 +53,32 @@ def test_model_flops_against_hand_counts():
     # sum 2·4·100; MLP 100→512→512→47
     assert gamlp_ref.flops_per_row() == 3 * 800 + 2 * (100 * 512 + 512 * 512 + 512 * 47)
 
-    class Inputs:  # the published split
-        num_nodes = 2_449_029
-        train_idx = range(196_615)
-        val_idx = range(39_323)
-        test_idx = range(2_213_091)
-
+    # a job at the published split: 4 train batches of 50,000 (196,615 rows,
+    # the tail padded), val in one batch, test in 23 of 100,000, 20 epochs,
+    # then the postprocess forward over every node
     rows = 20 * (3 * 4 * 50_000 + 39_323 + 23 * 100_000) + 2_449_029
-    assert roofline.job_flops(7, gamlp, Inputs) == rows * 7
-    assert roofline.rows_computed(10, None) == 10 and roofline.rows_computed(10, 4) == 12
+    job = {"train": 20 * 4 * 50_000, "eval": 20 * (39_323 + 23 * 100_000), "forward": 2_449_029}
+    assert roofline.job_flops(7, job) == rows * 7
+
+
+@pytest.mark.parametrize("workload,want", [
+    # GAMLP's tiny shape: 3 epochs of 4 train batches of 500 (1,800 rows)
+    # and 2 + 3 eval batches of 600 (700 and 1,500 rows), 4,000 nodes
+    ("gamlp_products.train", {"train": 3 * 2000, "eval": 3 * 3000, "forward": 4000}),
+    # SGC's: 4 full-batch epochs over 1,500 / 500 / 1,000 rows, 3,000 nodes
+    ("sgc_reddit.train", {"train": 4 * 1500, "eval": 4 * 1500, "forward": 3000}),
+    # NAGphormer's: GAMLP's batches over 2 epochs, the postprocess over
+    # 4,000 nodes in pieces of 600
+    ("nagphormer_products.train", {"train": 2 * 2000, "eval": 2 * 3000, "forward": 4000}),
+])
+def test_a_jobs_rows_are_counted_as_its_steps_ran_them(tmp_path, workload, want):
+    """The rows whose FLOPs a window counts are those the job's steps ran:
+    none of the set-up job's, each of a window job's, padding included;
+    the same rows as the count from the configuration's split."""
+    from bench_tiny import job_rows, make_tiny_root
+
+    assert job_rows(make_tiny_root(tmp_path), workload) == [dict.fromkeys(want, 0), want,
+                                                            {k: 2 * v for k, v in want.items()}]
 
 
 def test_trace_reduction_on_a_made_up_trace():
@@ -86,8 +109,8 @@ def test_tf32_rounding():
     assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
 
 
-PLAIN = ["reference.py", "judge.py", "roofline.py"] + sorted(
-    p.relative_to(BENCH).as_posix() for p in BENCH.glob("configs/*.py"))
+PLAIN = ["reference.py", "judge.py", "roofline.py"] + sorted(  # the test fixtures' configurations too
+    p.relative_to(BENCH).as_posix() for pattern in ("configs/*.py", "tests/*/configs/*.py") for p in BENCH.glob(pattern))
 
 
 @pytest.mark.parametrize("name", PLAIN)
